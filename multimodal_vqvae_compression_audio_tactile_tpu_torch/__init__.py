@@ -7,9 +7,11 @@ so it runs on a machine that has only PyTorch, numpy and the CUDA toolkit.
 Layout: ``core/config.py`` (configuration), ``utils/msgpack_read.py`` and
 ``train/checkpoint.py`` (reading the JAX checkpoints), ``convert.py`` (JAX
 parameter tree -> modules), ``models/`` (DAC backbone, AllPredAR codec),
-``nn/layers.py`` (predictor blocks), ``ops/`` (head RVQ and the residual-unit
-stack kernel, whose CUDA source is in ``csrc/``), ``eval/`` (bitstream and the
-streaming serving wrapper).
+``nn/layers.py`` (predictor blocks), ``ops/`` (head RVQ, the time-major
+convs, and the wrappers of the three CUDA kernels, whose sources are in
+``csrc/``: the channels-first residual-unit stack K1, the time-major one K3
+and the fused residual-VQ lookup K2), ``eval/`` (bitstream and the streaming
+serving wrapper, whose layout options choose K1 or K3 for each stack).
 
 Entry points take ``device=None``, which means CUDA; they run on the CPU only
 when the caller passes ``device="cpu"``.

@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -60,6 +61,14 @@ def build(name: str, source: str) -> str:
     build_log[name] = {"seconds": time.perf_counter() - t0,
                        "ptxas": proc.stderr.strip()}
     return so
+
+
+def build_all(libraries) -> None:
+    """Build several ``(name, source)`` libraries at once: one ``nvcc`` each,
+    all started together."""
+    libraries = list(libraries)
+    with ThreadPoolExecutor(max(len(libraries), 1)) as pool:
+        list(pool.map(lambda lib: build(*lib), libraries))
 
 
 def load(name: str, source: str, signatures: dict) -> ctypes.CDLL:

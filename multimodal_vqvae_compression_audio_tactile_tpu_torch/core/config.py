@@ -1,10 +1,14 @@
 """Typed configuration of the codec (own copy; the port imports no JAX module).
 
 Mirrors ``DacConfig``, ``PredictorConfig``, ``RVQConfig`` and ``CodecConfig``
-of the JAX package field for field, minus the options that only choose a TPU
-layout or kernel there (fused stacks, time-major stacks, polyphase upsampling,
-the time-major tail kernel): the port has one layout, channels-first
-``[B, C, T]``, and always runs its residual-unit stacks through its kernel.
+of the JAX package field for field, minus the fused-stack options
+(``fused_resunits``, ``fused_resunits_b1``): the port always runs its
+channels-first stacks through its kernel K1. The layout options keep JAX's
+names and meanings: ``time_major``/``time_major_enc`` run the decoder/encoder
+in ``[B, T, C]`` (``ops/timeconv.py``), ``tail_kernel`` sends every narrow
+(C < 256) residual-unit stack through the time-major kernel K3, and
+``poly_upsample`` runs the channels-first decoder's upsampling in polyphase
+form. All four are off by default.
 """
 
 from __future__ import annotations
@@ -35,6 +39,13 @@ class DacConfig:
     # "highest": fp32 convs (parity); "default": the serving precision, bf16
     # operands with fp32 accumulation. VQ scores are fp32 either way.
     precision: str = "highest"
+    # narrow (C < 256) residual-unit stacks through the time-major kernel K3
+    tail_kernel: bool = False
+    # the channels-first decoder's upsampling as a polyphase conv
+    poly_upsample: bool = False
+    # run the decoder / the encoders time-major, [B, T, C]
+    time_major: bool = False
+    time_major_enc: bool = False
 
     @property
     def hop(self) -> int:

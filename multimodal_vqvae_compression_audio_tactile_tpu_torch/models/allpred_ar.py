@@ -130,38 +130,45 @@ def ar_roll(head: Head, cfg: CodecConfig, qa: torch.Tensor,
 
 
 def backbone_latents(m: CodecModules, a: torch.Tensor, tc: torch.Tensor,
+                     cfg: Optional[CodecConfig] = None,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(quantized audio latents, tactile teacher latents), both [B, C, T_lat]."""
-    za = m.audio_dac.encoder(a)
-    zt = m.tactile_dac.encoder(tc)
+    """(quantized audio latents, tactile teacher latents), both [B, C, T_lat].
+    ``cfg`` (default ``m.cfg``) chooses the backbone's layout options."""
+    dcfg = (cfg or m.cfg).dac
+    za = m.audio_dac.encoder(a, dcfg)
+    zt = m.tactile_dac.encoder(tc, dcfg)
     qa, _ = m.audio_dac.quantizer.quantize(za)
     return qa, zt
 
 
 @torch.no_grad()
 def encode_latents(m: CodecModules, a: torch.Tensor, tc: torch.Tensor,
-                   n_books_use: Optional[int] = None) -> ARRollOut:
+                   n_books_use: Optional[int] = None,
+                   cfg: Optional[CodecConfig] = None) -> ARRollOut:
     """Serving encode: audio + tactile [B, 1, T] -> (z_run, codes)."""
-    qa, zt = backbone_latents(m, a, tc)
-    return ar_roll(m.head, m.cfg, qa, zt, n_books_use=n_books_use)
+    cfg = cfg or m.cfg
+    qa, zt = backbone_latents(m, a, tc, cfg)
+    return ar_roll(m.head, cfg, qa, zt, n_books_use=n_books_use)
 
 
 @torch.no_grad()
 def forward_eval(m: CodecModules, a: torch.Tensor, tc: torch.Tensor,
-                 n_books_use: Optional[int] = None) -> torch.Tensor:
+                 n_books_use: Optional[int] = None,
+                 cfg: Optional[CodecConfig] = None) -> torch.Tensor:
     """Full encode + decode -> tactile waveform [B, 1, T]."""
-    z_run, _ = encode_latents(m, a, tc, n_books_use=n_books_use)
-    return m.tactile_dac.decoder(z_run)
+    cfg = cfg or m.cfg
+    z_run, _ = encode_latents(m, a, tc, n_books_use=n_books_use, cfg=cfg)
+    return m.tactile_dac.decoder(z_run, cfg.dac)
 
 
 @torch.no_grad()
-def decode_from_codes(m: CodecModules, a: torch.Tensor,
-                      codes: torch.Tensor) -> torch.Tensor:
+def decode_from_codes(m: CodecModules, a: torch.Tensor, codes: torch.Tensor,
+                      cfg: Optional[CodecConfig] = None) -> torch.Tensor:
     """Receiver: audio waveform [B, 1, T] + codes [B, T_lat, n_use] -> tactile
     waveform. Re-encodes the audio, replays the predictor and adds the decoded
     residual; no tactile input is needed."""
-    head, cfg = m.head, m.cfg
-    za = m.audio_dac.encoder(a)
+    head, cfg = m.head, cfg or m.cfg
+    za = m.audio_dac.encoder(a, cfg.dac)
     qa, _ = m.audio_dac.quantizer.quantize(za)
     B, C, T = qa.shape
     T = min(T, codes.shape[1])
@@ -182,4 +189,4 @@ def decode_from_codes(m: CodecModules, a: torch.Tensor,
         carry = z_hat[..., -1:]
         z_hats.append(z_hat)
     z_run = torch.cat(z_hats, dim=-1)[..., :T]
-    return m.tactile_dac.decoder(z_run)
+    return m.tactile_dac.decoder(z_run, cfg.dac)

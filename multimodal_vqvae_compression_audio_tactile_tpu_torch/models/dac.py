@@ -1,24 +1,41 @@
 """DAC-class codec backbone: conv encoder, factorized cosine RVQ, conv decoder.
 
-Port of the JAX package's ``models/dac.py`` on channels-first ``[B, C, T]``.
-Parameters are fp32; every conv casts its weight to the input's dtype, so the
-same modules serve the fp32 parity mode and the bf16 serving mode. Every
-residual-unit stack, of the encoder and of the decoder, goes through
-``ops.resunit.resunit_stack`` (the CUDA kernel on the card), with the block's
-trailing snake fused into it.
+Port of the JAX package's ``models/dac.py``. Parameters are fp32; every conv
+casts its weight to the input's dtype, so the same modules serve the fp32
+parity mode and the bf16 serving mode. Two layouts, chosen per call by the
+``DacConfig`` passed to ``Encoder.forward``/``Decoder.forward`` (the module's
+own config when none is passed), with the JAX package's flags and guards:
+
+- channels-first ``[B, C, T]`` (the default): every residual-unit stack goes
+  through ``ops.resunit.resunit_stack`` (the CUDA kernel K1 on the card);
+  with ``poly_upsample`` the decoder upsamples in polyphase form
+  (``conv1d_transpose_poly``);
+- time-major ``[B, T, C]`` (``time_major_enc`` for the encoder, when the
+  down-convs are k = 2r and T is a multiple of the hop; ``time_major`` for
+  the decoder, when the up-convs are k = 2r): the convs of ``ops/timeconv.py``,
+  and every stack through the time-major chain of residual units.
+
+With ``tail_kernel`` every narrow stack (C < 256) goes through
+``ops.resunit_tm.resunit_stack_tm`` (the CUDA kernel K3 on the card) in
+either layout, between transposes in the channels-first one. A block's
+trailing snake runs fused into its stack.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import DacConfig
-from ..ops.resunit import DILATIONS, ResUnit, Snake, resunit_stack, snake
+from ..ops import timeconv as tc
+from ..ops.resunit import DILATIONS, ResUnit, Snake, resunit_stack
+from ..ops.resunit_tm import resunit_stack_tm
+
+NARROW = 256     # stacks narrower than this take K3 under ``tail_kernel``
 
 
 def conv1d(m: nn.Conv1d, x: torch.Tensor, stride: int = 1, dilation: int = 1,
@@ -36,8 +53,51 @@ def conv1d_transpose(m: nn.ConvTranspose1d, x: torch.Tensor,
                               output_padding=stride % 2)
 
 
+def conv1d_transpose_poly(m: nn.ConvTranspose1d, x: torch.Tensor,
+                          stride: int) -> torch.Tensor:
+    """Polyphase form of ``conv1d_transpose`` for k = 2r: every output sample
+    t0 * r + j is x[t0 - 1] . w[:, :, j + r] + x[t0] . w[:, :, j], so the op is
+    one stride-1 k=2 conv to r * C_out channels, a depth-to-space reshape and
+    the same torch crop."""
+    c_in, c_out, k = m.weight.shape
+    r = stride
+    if k != 2 * r:
+        raise ValueError(f"poly upsample requires k == 2*stride, got {k}, {r}")
+    pad, op = (r + 1) // 2, r % 2
+    B, _, T = x.shape
+    wt = m.weight.to(x.dtype).permute(2, 1, 0)        # [2r, C_out, C_in]
+    # tap order: ker[..., 0] multiplies x[t0 - 1], ker[..., 1] multiplies x[t0]
+    ker = torch.stack([wt[r:], wt[:r]], dim=-1).reshape(r * c_out, c_in, 2)
+    y = F.conv1d(x, ker, padding=1)                    # [B, r * C_out, T + 1]
+    y = y.reshape(B, r, c_out, T + 1).permute(0, 2, 3, 1).reshape(B, c_out, (T + 1) * r)
+    y = y[:, :, pad:(T + 1) * r - (pad - op)]          # torch crop -> T * r
+    return y + m.bias.to(x.dtype)[None, :, None]
+
+
 def _units(c: int) -> nn.ModuleList:
     return nn.ModuleList(ResUnit(c) for _ in DILATIONS)
+
+
+def _unit_stack(units: Sequence[ResUnit], y: torch.Tensor, cfg: DacConfig,
+                post_alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Channels-first stack: K3 between transposes for a narrow stack under
+    ``tail_kernel``, K1 otherwise."""
+    if cfg.tail_kernel and y.shape[1] < NARROW:
+        yt = resunit_stack_tm(units, y.transpose(1, 2).contiguous(),
+                              DILATIONS[:len(units)], post_alpha)
+        return yt.transpose(1, 2).contiguous()
+    return resunit_stack(units, y, DILATIONS, post_alpha=post_alpha)
+
+
+def _unit_stack_tm(units: Sequence[ResUnit], y: torch.Tensor, cfg: DacConfig,
+                   post_alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Time-major stack: K3 for a narrow stack under ``tail_kernel``, the
+    chain of ``timeconv.resunit_tm`` otherwise (as the JAX package does)."""
+    if cfg.tail_kernel and y.shape[2] < NARROW:
+        return resunit_stack_tm(units, y, DILATIONS[:len(units)], post_alpha)
+    for u, d in zip(units, DILATIONS):
+        y = tc.resunit_tm(u, y, d)
+    return y if post_alpha is None else tc.snake_tm(post_alpha, y)
 
 
 class EncoderBlock(nn.Module):
@@ -48,10 +108,14 @@ class EncoderBlock(nn.Module):
         self.snake = Snake(d)
         self.down = nn.Conv1d(d, 2 * d, 2 * r)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = resunit_stack(self.units, x, DILATIONS, post_alpha=self.snake.alpha)
+    def forward(self, x: torch.Tensor, cfg: DacConfig) -> torch.Tensor:
+        x = _unit_stack(self.units, x, cfg, post_alpha=self.snake.alpha)
         # kernel 2r, stride r, symmetric padding ceil(r/2): length T / r
         return conv1d(self.down, x, stride=self.r, padding=(self.r + 1) // 2)
+
+    def forward_tm(self, x: torch.Tensor, cfg: DacConfig) -> torch.Tensor:
+        x = _unit_stack_tm(self.units, x, cfg, post_alpha=self.snake.alpha)
+        return tc.down_tm(self.down, x, self.r)
 
 
 class Encoder(nn.Module):
@@ -59,6 +123,7 @@ class Encoder(nn.Module):
 
     def __init__(self, cfg: DacConfig):
         super().__init__()
+        self.cfg = cfg
         d = cfg.encoder_dim
         self.in_conv = nn.Conv1d(1, d, 7)
         blocks = []
@@ -69,11 +134,28 @@ class Encoder(nn.Module):
         self.out_snake = Snake(d)
         self.out_conv = nn.Conv1d(d, cfg.latent_dim, 3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def time_major_ok(self, x: torch.Tensor) -> bool:
+        """The time-major encoder's geometry: k = 2r down-convs and a length
+        that every stride divides."""
+        hop = math.prod(b.r for b in self.blocks)
+        return x.shape[-1] % hop == 0 and all(
+            b.down.weight.shape[-1] == 2 * b.r for b in self.blocks)
+
+    def forward(self, x: torch.Tensor, cfg: Optional[DacConfig] = None) -> torch.Tensor:
+        cfg = cfg or self.cfg
+        if cfg.time_major_enc and self.time_major_ok(x):
+            return self.forward_tm(x, cfg)
         y = conv1d(self.in_conv, x, padding=3)
         for block in self.blocks:
-            y = block(y)
+            y = block(y, cfg)
         return conv1d(self.out_conv, self.out_snake(y), padding=1)
+
+    def forward_tm(self, x: torch.Tensor, cfg: DacConfig) -> torch.Tensor:
+        y = tc.conv_tm(self.in_conv, x.transpose(1, 2))         # [B, T, C]
+        for block in self.blocks:
+            y = block.forward_tm(y, cfg)
+        y = tc.conv_tm(self.out_conv, tc.snake_tm(self.out_snake.alpha, y))
+        return y.transpose(1, 2)                                 # [B, C_lat, T / hop]
 
 
 class DecoderBlock(nn.Module):
@@ -84,10 +166,18 @@ class DecoderBlock(nn.Module):
         self.up = nn.ConvTranspose1d(d, d // 2, 2 * r)
         self.units = _units(d // 2)
 
-    def forward(self, x: torch.Tensor,
+    def forward(self, x: torch.Tensor, cfg: DacConfig,
                 post_alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = conv1d_transpose(self.up, self.snake(x), self.r)
-        return resunit_stack(self.units, x, DILATIONS, post_alpha=post_alpha)
+        # per-block geometry guard: the polyphase form needs k = 2r
+        poly = cfg.poly_upsample and self.up.weight.shape[-1] == 2 * self.r
+        up = conv1d_transpose_poly if poly else conv1d_transpose
+        x = up(self.up, self.snake(x), self.r)
+        return _unit_stack(self.units, x, cfg, post_alpha=post_alpha)
+
+    def forward_tm(self, x: torch.Tensor, cfg: DacConfig,
+                   post_alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = tc.up_tm(self.up, tc.snake_tm(self.snake.alpha, x), self.r)
+        return _unit_stack_tm(self.units, x, cfg, post_alpha=post_alpha)
 
 
 class Decoder(nn.Module):
@@ -95,6 +185,7 @@ class Decoder(nn.Module):
 
     def __init__(self, cfg: DacConfig):
         super().__init__()
+        self.cfg = cfg
         d = cfg.decoder_dim
         self.in_conv = nn.Conv1d(cfg.latent_dim, d, 7)
         blocks = []
@@ -105,13 +196,30 @@ class Decoder(nn.Module):
         self.out_snake = Snake(d)
         self.out_conv = nn.Conv1d(d, 1, 7)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        y = conv1d(self.in_conv, z, padding=3)
+    def poly_geometry_ok(self) -> bool:
+        """Every up-conv is k = 2r, as the time-major decoder needs."""
+        return all(b.up.weight.shape[-1] == 2 * b.r for b in self.blocks)
+
+    def _posts(self):
+        # the trailing out_snake runs fused into the last block's stack
         last = len(self.blocks) - 1
-        for i, block in enumerate(self.blocks):
-            # the trailing out_snake runs fused into the last block's stack
-            y = block(y, post_alpha=self.out_snake.alpha if i == last else None)
+        return [self.out_snake.alpha if i == last else None
+                for i in range(len(self.blocks))]
+
+    def forward(self, z: torch.Tensor, cfg: Optional[DacConfig] = None) -> torch.Tensor:
+        cfg = cfg or self.cfg
+        if cfg.time_major and self.poly_geometry_ok():
+            return self.forward_tm(z, cfg)
+        y = conv1d(self.in_conv, z, padding=3)
+        for block, post in zip(self.blocks, self._posts()):
+            y = block(y, cfg, post_alpha=post)
         return torch.tanh(conv1d(self.out_conv, y, padding=3))
+
+    def forward_tm(self, z: torch.Tensor, cfg: DacConfig) -> torch.Tensor:
+        y = tc.conv_tm(self.in_conv, z.transpose(1, 2))         # [B, T, C]
+        for block, post in zip(self.blocks, self._posts()):
+            y = block.forward_tm(y, cfg, post_alpha=post)
+        return torch.tanh(tc.conv_tm(self.out_conv, y)).transpose(1, 2)
 
 
 def _l2n(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -74,6 +74,8 @@ def resunit_stack_ref(units: Sequence[ResUnit], x: torch.Tensor,
     return x
 
 
+# (library name, source under csrc/)
+LIBRARY = ("resunit", "resunit_stack.cu")
 _SIGNATURES = {
     "resunit_conv7": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "resunit_conv1": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
@@ -81,7 +83,7 @@ _SIGNATURES = {
 
 
 def _lib() -> ctypes.CDLL:
-    return _build.load("resunit", "resunit_stack.cu", _SIGNATURES)
+    return _build.load(*LIBRARY, _SIGNATURES)
 
 
 def _check(rc: int, fn: str) -> None:
