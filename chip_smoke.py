@@ -14,13 +14,18 @@ random ones made from ``--seed``. Phases, one line of numbers each:
 0. guard: a hang becomes a traceback and a non-zero exit after 900 s; the
    card's name and power limit;
 1. build: the three CUDA libraries compiled from the repository's sources,
-   one ``nvcc`` each, all started together;
+   one ``nvcc`` each, all started together, with each kernel's registers,
+   spills and shared memory from ptxas (and the dynamic shared memory of
+   each tensor-core tile); then ``sass``: the HMMA (tensor-core)
+   instructions that ``cuobjdump -sass`` finds in the two stack libraries,
+   which must be more than 0 in both;
 2. kernel check, each kernel against its plain version on the same inputs:
    K1 (``resunit_stack``) at the eight stack shapes of the default path and
    K3 (``resunit_stack_tm``) at the four narrow ones of the time-major path,
-   fp32 (max relative error 1e-4, TF32 off; both also against an fp64 run of
-   the stack) and bf16 (2e-2), timed with CUDA events beside the plain
-   version and cuDNN's convolutions of the same stack; K2 (``rvq_lookup``)
+   fp32 (FFMA; max relative error 1e-4, TF32 off; both also against an fp64
+   run of the stack) and bf16 (tensor cores; 2e-2), each with its launch
+   grid, timed with CUDA events beside the plain version and cuDNN's
+   convolutions of the same stack; K2 (``rvq_lookup``)
    at the head RVQ's shapes, ties and ``n_books_use`` included (indices
    equal to the plain version's and to ``ops/rvq.py::rvq_quantize``'s,
    q_sum bit-equal), timed beside the plain version and the score products
@@ -28,8 +33,9 @@ random ones made from ``--seed``. Phases, one line of numbers each:
 3. load: the codec's modules, read by the port's own checkpoint reader or
    made from the seed, moved to the card;
 4. round trip, default configuration: fp32 and bf16 serving on a 1 s signal
-   made from the seed, with the launch counters read around each call (48
-   K1 launches per encode and per receiver decode); the receiver's waveform
+   made from the seed, with the launch counters read around each call (8
+   K1 stacks per encode and per receiver decode: 48 launches in fp32, 56 in
+   bf16, whose stacks add a prologue each); the receiver's waveform
    against the transmitter's own decode; finite outputs; the fp32 path
    against the same path with every stack through the plain version
    (identical codes); bf16 against fp32 with the continuous-latent
@@ -40,7 +46,8 @@ random ones made from ``--seed``. Phases, one line of numbers each:
    ``rvq_quantize_fused`` (K2), with its counter read around it, and K2
    checked on them as in phase 2;
 6. round trip, time-major configuration, fp32 and bf16: K3's launches per
-   encode and per receiver decode (24 each, no K1); the fp32 continuous
+   encode and per receiver decode (4 stacks: 24 in fp32, 28 in bf16; no
+   K1); the fp32 continuous
    latent within 1e-5 of the same configuration with every stack through
    the plain versions and of the default configuration, and the decoder's
    output on one ``z_run`` within 1e-4 of the plain stacks' (codes
@@ -68,7 +75,10 @@ import contextlib
 import copy
 import faulthandler
 import json
+import importlib.util
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -79,6 +89,7 @@ import torch
 from multimodal_vqvae_compression_audio_tactile_tpu_torch import _build
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.convert import load_codec
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.config import CodecConfig
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.precision import fp32_exact
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval.serving import StreamingCodec
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.models import allpred_ar, dac
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.ops import resunit, resunit_tm, rvq, vq
@@ -264,7 +275,8 @@ def check_stacks(name: str, stacks: list, time_major: bool, gen: torch.Generator
             got = kernel(units, x, dils, pa)
             ref = plain(units, x, dils, pa)
             torch.cuda.synchronize()
-            gate(mod.launches == before + 2 * len(units), f"{name} did not launch")
+            gate(mod.launches == before + resunit.stack_launches(len(units), dt),
+                 f"{name} did not launch")
             err = rel_err(got, ref)
             abs_err = float((got.float() - ref.float()).abs().max())
             gate(bool(torch.isfinite(got).all()) and err <= TOL[dt],
@@ -282,7 +294,10 @@ def check_stacks(name: str, stacks: list, time_major: bool, gen: torch.Generator
                   "library_ms": cuda_ms(lambda: cudnn_convs(units, x_nch)),
                   **stack_bound(c, t, dt)}
             rec.add(dt, abs_err, **ms)
+            grid = resunit.launch_grid(c, t, 1, dt)
             say("kernel_check", kernel=name, C=c, T=t, dtype=dtype_name(dt),
+                grid=grid, blocks=grid[0] * grid[1] * grid[2],
+                tile=resunit.pick_tile(c, t) if dt == torch.bfloat16 else resunit.FFMA_TILE,
                 rel_err=err, max_abs_err=abs_err, **vs64, **ms)
     rec.report(name)
     return rec
@@ -383,8 +398,10 @@ def plain_stacks():
 
 def serve(m, name: str, fast: bool, a, tc, expect: dict, flags: dict) -> dict:
     """One configuration's bytes round trip with its launch counts gated,
-    its latencies, its wire rate and the tactile encoder's continuous latent."""
-    sc = StreamingCodec(m, batch=1, frame_sec=1.0, fast=fast, **flags)
+    its latencies, its wire rate and the tactile encoder's continuous latent.
+    ``fast`` serves in bf16, else in fp32."""
+    sc = StreamingCodec(m, batch=1, frame_sec=1.0, fast=fast, compute_dtype=dtype_of(fast),
+                        **flags)
     streams, n_enc, enc_host_ms = counted(lambda: sc.encode_to_bytes(a, tc))
     y, n_dec, dec_host_ms = counted(lambda: sc.decode_from_bytes(a, streams))
     gate(n_enc == expect and n_dec == expect,
@@ -396,7 +413,7 @@ def serve(m, name: str, fast: bool, a, tc, expect: dict, flags: dict) -> dict:
     rx_vs_tx = rel_err(y, y_tx)
     enc_ms = cuda_ms(lambda: sc.encode(a, tc), reps=5)
     dec_ms = cuda_ms(lambda: sc.decode_from_codes(a, codes), reps=5)
-    with torch.no_grad():
+    with torch.no_grad(), fp32_exact(not fast):
         zc = m.tactile_dac.encoder(torch.from_numpy(tc).cuda().to(sc.dtype),
                                    sc.cfg.dac).float()
     nbytes = len(streams[0])
@@ -418,9 +435,11 @@ def latents(m, fast: bool, flags: dict, streams: tuple) -> dict:
     """One configuration's encode of a batch of streams: the wire's latent,
     the codes and the tactile encoder's continuous latent."""
     a, tc = streams
-    sc = StreamingCodec(m, batch=a.shape[0], frame_sec=1.0, fast=fast, **flags)
+    sc = StreamingCodec(m, batch=a.shape[0], frame_sec=1.0, fast=fast,
+                        compute_dtype=dtype_of(fast), **flags)
     z_run, codes = sc.encode(a, tc)
-    zc = m.tactile_dac.encoder(torch.from_numpy(tc).cuda().to(sc.dtype), sc.cfg.dac)
+    with fp32_exact(not fast):
+        zc = m.tactile_dac.encoder(torch.from_numpy(tc).cuda().to(sc.dtype), sc.cfg.dac)
     return {"z_run": z_run.float(), "zc": zc.float(), "codes": codes.cpu().numpy()}
 
 
@@ -456,15 +475,22 @@ def parity(name: str, f32: dict, b16: dict) -> None:
     gate(abs(ratio - 1.0) < 1e-2, f"{name}: bf16 wire-fidelity ratio {ratio:.4f} not within 1%")
 
 
-def expect(k1: int = 0, k3: int = 0) -> dict:
-    return {"resunit_stack": k1, "resunit_stack_tm": k3, "rvq_lookup": 0}
+def dtype_of(fast: bool) -> torch.dtype:
+    return torch.bfloat16 if fast else torch.float32
+
+
+def expect(fast: bool, k1: int = 0, k3: int = 0) -> dict:
+    """Launches of k1 K1 stacks and k3 K3 stacks of 3 units each."""
+    per_stack = resunit.stack_launches(len(resunit.DILATIONS), dtype_of(fast))
+    return {"resunit_stack": k1 * per_stack, "resunit_stack_tm": k3 * per_stack,
+            "rvq_lookup": 0}
 
 
 def round_trip(m: allpred_ar.CodecModules, a, tc, many: tuple) -> dict:
-    """The default configuration: every stack through K1, 2 launches a unit:
-    2 encoders x 4 stacks x 3 units x 2 on encode; encoder + decoder likewise.
+    """The default configuration: every stack through K1, 2 encoders x 4
+    stacks on encode, encoder + decoder likewise on the receiver's decode.
     Its fp32 encode of the ``many`` streams is every bf16 parity's reference."""
-    res = {name: serve(m, name, fast, a, tc, expect(k1=48), {})
+    res = {name: serve(m, name, fast, a, tc, expect(fast, k1=8), {})
            for name, fast in (("fp32", False), ("bf16", True))}
     # the fp32 main path with every stack through the plain version instead
     sc = res["fp32"]["codec"]
@@ -487,14 +513,13 @@ def time_major_round_trip(m: allpred_ar.CodecModules, a, tc, many: tuple,
                           default: dict) -> dict:
     """The time-major configuration: the narrow stacks through K3 (2 encoders
     x 2 stacks on encode; the audio encoder's 2 and the decoder's 2 on the
-    receiver's decode, 3 units x 2 launches each), the wide ones through the
-    time-major chain, no K1."""
-    res = {name: serve(m, f"time_major_{name}", fast, a, tc, expect(k3=24), TIME_MAJOR)
+    receiver's decode), the wide ones through the time-major chain, no K1."""
+    res = {name: serve(m, f"time_major_{name}", fast, a, tc, expect(fast, k3=4), TIME_MAJOR)
            for name, fast in (("fp32", False), ("bf16", True))}
     f32 = res["fp32"]
     sc = f32["codec"]
     x_tc = torch.from_numpy(tc).cuda()
-    with torch.no_grad(), plain_stacks():
+    with torch.no_grad(), plain_stacks(), fp32_exact():
         (zc_p, (_, codes_p), y_p), counts, _ = counted(lambda: (
             m.tactile_dac.encoder(x_tc, sc.cfg.dac).float(), sc.encode(a, tc),
             sc.decode(f32["z_run"])))
@@ -522,7 +547,7 @@ def tail_kernel_round_trip(m, a, tc, many: tuple, default: dict) -> dict:
     backbone); held to the default configuration's fp32, as is the same
     configuration through the plain stacks."""
     flags = {"tail_kernel": True}
-    b16 = serve(m, "tail_kernel_bf16", True, a, tc, expect(k1=24, k3=24), flags)
+    b16 = serve(m, "tail_kernel_bf16", True, a, tc, expect(True, k1=4, k3=4), flags)
     parity("tail_kernel", default["fp32_many"], latents(m, True, flags, many))
     with plain_stacks():
         plain = latents(m, True, flags, many)
@@ -536,7 +561,7 @@ def head_rvq_path(m: allpred_ar.CodecModules, a, tc) -> tuple:
     time) through ``rvq_quantize_fused`` with the counters at 0 just before;
     then K2 checked on each chunk as in the kernel check. -> (K2's launches,
     its record over the chunks)."""
-    sc = StreamingCodec(m, batch=1, frame_sec=1.0, fast=False)
+    sc = StreamingCodec(m, batch=1, frame_sec=1.0, fast=False, compute_dtype=torch.float32)
     inputs = []
 
     def capture(books, z, n_books_use=None):
@@ -565,6 +590,10 @@ def head_rvq_path(m: allpred_ar.CodecModules, a, tc) -> tuple:
 
 def kind_of(kernel: str) -> str:
     k = kernel.lower()
+    if "mma_unit_kernel" in k or "prologue_kernel" in k:
+        # the tensor-core stacks: the template's CF flag is true for K1
+        head = k.replace("(anonymous namespace)", "").split("(")[0]
+        return "K1 resunit_stack" if "true" in head else "K3 resunit_stack_tm"
     if "unit_tm_kernel" in k:
         return "K3 resunit_stack_tm"
     if "unit_conv_kernel" in k:
@@ -630,6 +659,49 @@ def small_reference(seed: int) -> None:
          "the trained tiny codec on the card disagrees with the CPU")
 
 
+def ptxas_summary(log: str) -> dict:
+    """Each kernel's registers, stack, spill bytes and static shared memory,
+    as ``nvcc -Xptxas -v`` printed them, by demangled-ish name."""
+    out = {}
+    for m in re.finditer(r"entry function '(\S+)'.*?\n(?:.*Function properties.*\n)?\s*"
+                         r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                         r"spill loads\n.*?Used (\d+) registers(.*)", log):
+        name, stack, st, ld, regs, rest = m.groups()
+        smem = re.search(r"(\d+) bytes smem", rest)
+        short = re.sub(r"^_ZN.*?(\d+)(mma_unit_kernel|prologue_kernel|unit_conv_kernel|"
+                       r"unit_tm_kernel|\w*rvq\w*)", r"\2", name)
+        out[short[:90]] = {"registers": int(regs), "stack": int(stack),
+                           "spill_stores": int(st), "spill_loads": int(ld),
+                           "static_smem": int(smem.group(1)) if smem else 0}
+    return out
+
+
+def cuobjdump() -> str:
+    """The CUDA toolkit's cuobjdump, or the copy in Triton's package."""
+    cands = [shutil.which("cuobjdump"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.submodule_search_locations:
+        cands += [os.path.join(p, "backends", "nvidia", "bin", "cuobjdump")
+                  for p in spec.submodule_search_locations]
+    for cand in cands:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("cuobjdump not found: the sass check needs it")
+
+
+def sass_check() -> None:
+    """HMMA (tensor-core MMA) instructions in the two stack libraries' SASS."""
+    tool, counts = cuobjdump(), {}
+    for mod in (resunit, resunit_tm):
+        name = mod.LIBRARY[0]
+        sass = subprocess.run([tool, "-sass", os.path.join(_build.BUILD_DIR, f"lib{name}.so")],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        counts[f"lib{name}.so"] = len(re.findall(r"\bHMMA\.", sass))
+    say("sass", tool=tool, hmma_instructions=counts)
+    gate(all(n > 0 for n in counts.values()), f"no HMMA instruction in {counts}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -649,17 +721,22 @@ def main() -> int:
     t0 = time.perf_counter()
     libraries = [mod.LIBRARY for mod, _, _ in KERNELS.values()]
     _build.build_all(libraries)
+    lib = resunit._lib()
     say("build", seconds=time.perf_counter() - t0,
         libraries={name: _build.build_log.get(name, {}).get("seconds", "cached")
                    for name, _ in libraries},
-        ptxas={name: log["ptxas"] for name, log in _build.build_log.items()})
+        ptxas={name: ptxas_summary(log["ptxas"]) for name, log in _build.build_log.items()},
+        tensor_core_dynamic_smem_bytes={
+            f"{tm}x{tn}": {"k7_d9": lib.resunit_smem_bytes(7, tm, tn, 9),
+                           "k1": lib.resunit_smem_bytes(1, tm, tn, 1)}
+            for tm, tn in resunit.TILES})
+    sass_check()
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(args.seed)
-    records = {"resunit_stack": check_stacks("resunit_stack", STACKS, False, gen),
-               "resunit_stack_tm": check_stacks("resunit_stack_tm", TM_STACKS, True, gen)}
-    check_rvq_cases(gen)
+    with fp32_exact():      # the plain versions' and cuDNN's fp32 convolutions
+        records = {"resunit_stack": check_stacks("resunit_stack", STACKS, False, gen),
+                   "resunit_stack_tm": check_stacks("resunit_stack_tm", TM_STACKS, True, gen)}
+        check_rvq_cases(gen)
 
     t0 = time.perf_counter()
     cfg = CodecConfig().with_rvq(8, 128)

@@ -2,7 +2,7 @@
 with an ``extern "C"`` interface, loaded with ``ctypes``.
 
 A library is compiled at first use when it is missing or older than its
-source, into ``build/torch_kernels/`` at the repository root. The compiler
+source or than a header under ``csrc/`` that the source includes, into ``build/torch_kernels/`` at the repository root. The compiler
 writes to a temporary name that is renamed into place, so a build that is
 killed leaves nothing half-written and no lock behind. Nothing here runs at
 import time: this module is imported on machines without ``nvcc``.
@@ -12,15 +12,17 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC]
 BUILD_TIMEOUT_S = 600
 
 _loaded: dict = {}
@@ -37,12 +39,23 @@ def _nvcc() -> str:
                        "CUDA toolkit on the machine that has the card")
 
 
+def sources(source: str) -> list:
+    """``csrc/<source>`` and the ``csrc/`` headers it includes (``#include
+    "..."``, one level deep)."""
+    src = os.path.join(CSRC, source)
+    with open(src) as f:
+        included = re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(), re.M)
+    return [src] + [os.path.join(CSRC, h) for h in included]
+
+
 def build(name: str, source: str) -> str:
     """Compile ``csrc/<source>`` into ``lib<name>.so`` if it is missing or
-    stale; return the library's path."""
-    src = os.path.join(_PKG, "csrc", source)
+    older than the source or a header it includes; return the library's
+    path."""
+    src = os.path.join(CSRC, source)
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    if os.path.exists(so) and all(os.path.getmtime(so) >= os.path.getmtime(f)
+                                  for f in sources(source)):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"

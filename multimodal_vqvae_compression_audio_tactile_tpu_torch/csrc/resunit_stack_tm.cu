@@ -20,18 +20,24 @@
 // C T elements, so bound by operations at every width of the model. The TPU
 // kernel kept all three units' weights and a haloed [t_tile + 80, C] window in
 // VMEM; at C = 192 the weights alone are 1.8 MB in bf16, against 227 KB of
-// shared memory a block. This design tiles the output [64 T x 64 C_out] per
-// block and streams 16 input channels at a time, with their 6 d rows of halo,
-// through shared memory (snake applied on the way in), together with the
-// matching fp32 weights read in PyTorch's [C_out, C_in, k] layout and rounded
-// to the operand type there, so no packed copy of the weights is made. It
-// accumulates in fp32 FFMA, 4 x 4 outputs a thread, for fp32 and bf16 operands
-// alike. With C contiguous each tap is a [rows, C_in] x [C_in, C_out] product:
-// the tensor cores, and one launch per stack, are the work of a later change.
+// shared memory a block, so each unit is two launches here.
+//
+// bf16 operands run on the tensor cores through the product core shared with
+// K1 (resunit_mma.cuh): with C contiguous each tap is a [rows, C_in] x
+// [C_in, C_out] product. A prologue writes unit 0's snaked operand and packs
+// the stack's fp32 weights, read in place from PyTorch's [C_out, C_in, k]
+// layout, in bf16; each k=1 launch writes the next unit's snaked operand, so
+// a bf16 stack of n units is 2 n + 1 launches.
+//
+// fp32 operands keep the FFMA design below: each block a [64 T x 64 C_out]
+// tile, 16 input channels at a time, with their 6 d rows of halo, through
+// shared memory (snake applied on the way in), 4 x 4 outputs a thread.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "resunit_mma.cuh"
 
 namespace {
 
@@ -42,30 +48,19 @@ constexpr int MAX_SHIFT = 27;   // 3 * max dilation (9)
 constexpr int WIN = T_TILE + 2 * MAX_SHIFT;
 constexpr int THREADS = 256;    // 16 x 16 threads, 4 x 4 outputs each
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-// round a float to the operand type and back (identity for fp32)
-template <typename T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
-
 __device__ __forceinline__ float snake(float x, float a) {
   float s = sinf(a * x);
   return x + s * s / (a + 1e-9f);
 }
 
-// T: operand type; TI: type of `in`; TA: type of the carry `resid`; TO: type of `out`.
 // KT = 7: out = snake_a_out(W7 *_d snake_a_in(in) + b7), in = the carry
 // KT = 1: out = resid + (W1 . in + b1), then snake_a_out if a_out != nullptr, in = h2
-template <typename T, typename TI, typename TA, typename TO, int KT>
+template <int KT>
 __global__ void __launch_bounds__(THREADS)
-unit_tm_kernel(const TI* __restrict__ in, const float* __restrict__ w,
+unit_tm_kernel(const float* __restrict__ in, const float* __restrict__ w,
                const float* __restrict__ bias, const float* __restrict__ alpha_in,
-               const float* __restrict__ alpha_out, const TA* __restrict__ resid,
-               TO* __restrict__ out, int C, int Tlen, int dil) {
+               const float* __restrict__ alpha_out, const float* __restrict__ resid,
+               float* __restrict__ out, int C, int Tlen, int dil) {
   __shared__ float in_s[CI_CHUNK][WIN];
   __shared__ float w_s[CI_CHUNK * KT][CO_TILE + 1];
 
@@ -90,8 +85,8 @@ unit_tm_kernel(const TI* __restrict__ in, const float* __restrict__ w,
       int ci = ci0 + c, t = t0 - halo + p;
       float v = 0.f;
       if (ci < C && t >= 0 && t < Tlen) {
-        v = to_f(in[base + (size_t)t * C + ci]);
-        if (KT == 7) v = rnd<T>(snake(v, alpha_in[ci]));
+        v = in[base + (size_t)t * C + ci];
+        if (KT == 7) v = snake(v, alpha_in[ci]);
       }
       in_s[c][p] = v;
     }
@@ -99,7 +94,7 @@ unit_tm_kernel(const TI* __restrict__ in, const float* __restrict__ w,
     for (int i = threadIdx.x; i < CO_TILE * CI_CHUNK * KT; i += THREADS) {
       int r = i / (CI_CHUNK * KT), q = i % (CI_CHUNK * KT);
       int co = co0 + r, ci = ci0 + q / KT;
-      w_s[q][r] = (co < C && ci < C) ? rnd<T>(w[((size_t)co * C + ci) * KT + q % KT]) : 0.f;
+      w_s[q][r] = (co < C && ci < C) ? w[((size_t)co * C + ci) * KT + q % KT] : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -133,22 +128,22 @@ unit_tm_kernel(const TI* __restrict__ in, const float* __restrict__ w,
       if (KT == 7) {
         v = snake(v, alpha_out[co]);
       } else {
-        v = to_f(resid[o]) + v;
+        v = resid[o] + v;
         if (alpha_out != nullptr) v = snake(v, alpha_out[co]);
       }
-      out[o] = from_f<TO>(v);
+      out[o] = v;
     }
   }
 }
 
-template <typename T, typename TI, typename TA, typename TO, int KT>
+template <int KT>
 int launch(const void* in, const void* w, const void* bias, const void* alpha_in,
            const void* alpha_out, const void* resid, void* out, int B, int C,
            int Tlen, int dil, void* stream) {
   dim3 grid((Tlen + T_TILE - 1) / T_TILE, (C + CO_TILE - 1) / CO_TILE, B);
-  unit_tm_kernel<T, TI, TA, TO, KT><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const TI*)in, (const float*)w, (const float*)bias, (const float*)alpha_in,
-      (const float*)alpha_out, (const TA*)resid, (TO*)out, C, Tlen, dil);
+  unit_tm_kernel<KT><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)in, (const float*)w, (const float*)bias, (const float*)alpha_in,
+      (const float*)alpha_out, (const float*)resid, (float*)out, C, Tlen, dil);
   return (int)cudaGetLastError();
 }
 
@@ -158,42 +153,53 @@ using bf16 = __nv_bfloat16;
 
 extern "C" {
 
-// h2 = snake_a2(conv7_dil(snake_a1(acc)) + b7); acc [B, T, C] in fp32 when
-// acc_f32, else in the operand type; h2 [B, T, C] in the operand type;
-// w7 [C, C, 7] fp32 (nn.Conv1d layout), b7, a1, a2 [C] fp32
-int resunit_tm_conv7(const void* acc, int acc_f32, const void* w7, const void* b7,
-                     const void* a1, const void* a2, void* h2, int B, int C,
-                     int Tlen, int dil, int is_bf16, void* stream) {
+// The prologue of a bf16 stack of n_units (1..3): hs = bf16(snake_a1(x))
+// [B, T, C], unit 0's operand, from x [B, T, C] bf16; and each unit u's fp32
+// weights w7_u [C, C, 7], w1_u [C, C, 1] rounded to bf16 and packed into
+// wp + u * 8 C^2 as [7][C_out][C_in] then [C_out][C_in] (the w7/w1 arguments
+// of the bf16 launches below)
+int resunit_tm_prologue(const void* x, const void* a1, void* hs, const void* w7_0,
+                        const void* w7_1, const void* w7_2, const void* w1_0,
+                        const void* w1_1, const void* w1_2, int n_units, void* wp, int B,
+                        int C, int Tlen, void* stream) {
+  const void* w7[] = {w7_0, w7_1, w7_2};
+  const void* w1[] = {w1_0, w1_1, w1_2};
+  return mma_core::launch_prologue<false>(x, a1, hs, w7, w1, n_units, wp, B, C, Tlen, stream);
+}
+
+// h2 = snake_a2(conv7_dil(snake_a1(acc)) + b7); h2 [B, T, C] in the operand
+// type; b7, a1, a2 [C] fp32. fp32: acc is the fp32 carry [B, T, C], w7
+// [C, C, 7] (nn.Conv1d layout). bf16: acc is hs = bf16(snake_a1(carry))
+// [B, T, C] (a1 unused), w7 the unit's packed [7][C][C] from the prologue,
+// with the tile (t_tile, co_tile).
+int resunit_tm_conv7(const void* acc, const void* w7, const void* b7, const void* a1,
+                     const void* a2, void* h2, int B, int C, int Tlen, int dil,
+                     int is_bf16, int t_tile, int co_tile, void* stream) {
   if (dil < 1 || 3 * dil > MAX_SHIFT) return (int)cudaErrorInvalidValue;
   if (!is_bf16)
-    return launch<float, float, float, float, 7>(acc, w7, b7, a1, a2, nullptr, h2,
-                                                 B, C, Tlen, dil, stream);
-  return acc_f32
-      ? launch<bf16, float, float, bf16, 7>(acc, w7, b7, a1, a2, nullptr, h2, B, C,
-                                            Tlen, dil, stream)
-      : launch<bf16, bf16, bf16, bf16, 7>(acc, w7, b7, a1, a2, nullptr, h2, B, C,
-                                          Tlen, dil, stream);
+    return launch<7>(acc, w7, b7, a1, a2, nullptr, h2, B, C, Tlen, dil, stream);
+  return mma_core::launch<7, false, bf16, bf16>(t_tile, co_tile, acc, w7, b7, a2, nullptr,
+                                                nullptr, h2, nullptr, B, C, Tlen, dil,
+                                                stream);
 }
 
 // out = acc + (W1 . h2 + b1), then snake_post when post_alpha is not null;
-// out in fp32 when out_f32, else in the operand type; w1 [C, C, 1] fp32
+// out in fp32 when out_f32, else in the operand type; w1 [C, C, 1] fp32, or
+// in bf16 the unit's packed [C][C]. bf16 only: with hs_next not null, also
+// hs_next = bf16(snake_a1_next(out)) [B, T, C], taken on the fp32 sum, the
+// next unit's operand.
 int resunit_tm_conv1(const void* acc, int acc_f32, const void* h2, const void* w1,
-                     const void* b1, const void* post_alpha, void* out, int out_f32,
-                     int B, int C, int Tlen, int is_bf16, void* stream) {
+                     const void* b1, const void* post_alpha, const void* a1_next,
+                     void* hs_next, void* out, int out_f32, int B, int C, int Tlen,
+                     int is_bf16, int t_tile, int co_tile, void* stream) {
   if (!is_bf16)
-    return launch<float, float, float, float, 1>(h2, w1, b1, nullptr, post_alpha, acc,
-                                                 out, B, C, Tlen, 1, stream);
-  if (acc_f32)
-    return out_f32
-        ? launch<bf16, bf16, float, float, 1>(h2, w1, b1, nullptr, post_alpha, acc, out,
-                                              B, C, Tlen, 1, stream)
-        : launch<bf16, bf16, float, bf16, 1>(h2, w1, b1, nullptr, post_alpha, acc, out,
-                                             B, C, Tlen, 1, stream);
-  return out_f32
-      ? launch<bf16, bf16, bf16, float, 1>(h2, w1, b1, nullptr, post_alpha, acc, out,
-                                           B, C, Tlen, 1, stream)
-      : launch<bf16, bf16, bf16, bf16, 1>(h2, w1, b1, nullptr, post_alpha, acc, out,
-                                          B, C, Tlen, 1, stream);
+    return launch<1>(h2, w1, b1, nullptr, post_alpha, acc, out, B, C, Tlen, 1, stream);
+#define TM_CONV1(TA, TO)                                                              \
+  mma_core::launch<1, false, TA, TO>(t_tile, co_tile, h2, w1, b1, post_alpha, a1_next, \
+                                     acc, out, hs_next, B, C, Tlen, 1, stream)
+  if (acc_f32) return out_f32 ? TM_CONV1(float, float) : TM_CONV1(float, bf16);
+  return out_f32 ? TM_CONV1(bf16, float) : TM_CONV1(bf16, bf16);
+#undef TM_CONV1
 }
 
 }  // extern "C"

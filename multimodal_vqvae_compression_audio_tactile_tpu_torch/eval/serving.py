@@ -1,15 +1,20 @@
 """Batched streaming serving: the codec over fixed ``[batch, 1, frame]`` shapes.
 
 Port of the JAX package's ``eval/serving.py::StreamingCodec``. One frame is one
-second of signal (75 latent tokens) by default. Two compute modes:
+second of signal (75 latent tokens) by default. As there, two settings
+choose the arithmetic, independently of each other:
 
-- ``fast=True`` (the serving default): bf16 operands for the conv stacks and
-  the attention, fp32 accumulation; the VQ scores that pick the transmitted
-  codes are true fp32.
-- ``fast=False``: fp32 throughout, the parity mode.
+- ``compute_dtype`` (default ``torch.bfloat16``, the serving default): the
+  activations' type, so the operands of the conv stacks and the attention,
+  with fp32 accumulation; ``torch.float32`` is the parity mode. The VQ
+  scores that pick the transmitted codes are true fp32 in both.
+- ``fast`` (default True): the JAX package's ``CodecConfig.fast_serving()``
+  matmul precision ("default" against "highest"), kept in ``cfg``. The
+  port's CUDA paths compute in the operand type at full precision either way.
 
-Either way TF32 is switched off for fp32 convs and matmuls, so an fp32 result
-is true fp32 (the JAX package pins its VQ scores to HIGHEST likewise).
+In fp32 every convolution and product is true fp32: the entry points pin
+TF32 off for the duration of a call (``core/precision.py::fp32_exact``) and
+leave the process's settings as they found them.
 
 The layout options ``time_major``, ``time_major_enc``, ``tail_kernel`` and
 ``poly_upsample`` have the JAX package's names and meanings (see
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from ..core.config import CodecConfig
+from ..core.precision import fp32_exact
 from ..models import allpred_ar
 from . import bitstream
 
@@ -47,21 +53,21 @@ class StreamingCodec:
 
     def __init__(self, modules: allpred_ar.CodecModules, batch: int,
                  frame_sec: float = 1.0, n_books_use: Optional[int] = None,
-                 fast: bool = True, device=None,
+                 compute_dtype: torch.dtype = torch.bfloat16, fast: bool = True,
+                 device=None,
                  poly_upsample: Optional[bool] = None,
                  time_major: Optional[bool] = None,
                  tail_kernel: Optional[bool] = None,
                  time_major_enc: Optional[bool] = None):
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"StreamingCodec: unsupported compute_dtype {compute_dtype}")
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
         cfg: CodecConfig = modules.cfg
         cfg = cfg.fast_serving() if fast else cfg
         self.cfg = dataclasses.replace(cfg, dac=dataclasses.replace(
             cfg.dac, poly_upsample=bool(poly_upsample), time_major=bool(time_major),
             tail_kernel=bool(tail_kernel), time_major_enc=bool(time_major_enc)))
-        self.dtype = torch.bfloat16 if fast else torch.float32
+        self.dtype = compute_dtype
         self.modules = modules.to(self.device).eval()
         self.batch = batch
         self.frame = int(frame_sec * cfg.dac.sample_rate)
@@ -86,8 +92,9 @@ class StreamingCodec:
     @torch.no_grad()
     def decode(self, z_run: torch.Tensor) -> torch.Tensor:
         """Latent stream -> tactile waveform [batch, 1, frame] (fp32)."""
-        return self.modules.tactile_dac.decoder(z_run.to(self.dtype),
-                                                self.cfg.dac).float()
+        with fp32_exact(self.dtype == torch.float32):
+            return self.modules.tactile_dac.decoder(z_run.to(self.dtype),
+                                                    self.cfg.dac).float()
 
     def decode_from_codes(self, a, codes) -> torch.Tensor:
         """Receiver: audio [batch, 1, frame] + codes [batch, T_lat, n] ->

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ..core.config import CodecConfig
+from ..core.precision import fp32_exact
 from ..nn.layers import CrossPredictor, token_norm
 from ..ops.rvq import rvq_decode, rvq_quantize
 from .dac import DAC, init_dac_
@@ -145,20 +146,23 @@ def backbone_latents(m: CodecModules, a: torch.Tensor, tc: torch.Tensor,
 def encode_latents(m: CodecModules, a: torch.Tensor, tc: torch.Tensor,
                    n_books_use: Optional[int] = None,
                    cfg: Optional[CodecConfig] = None) -> ARRollOut:
-    """Serving encode: audio + tactile [B, 1, T] -> (z_run, codes)."""
+    """Serving encode: audio + tactile [B, 1, T] -> (z_run, codes). In fp32
+    (a's dtype) every convolution and product is true fp32 (no TF32)."""
     cfg = cfg or m.cfg
-    qa, zt = backbone_latents(m, a, tc, cfg)
-    return ar_roll(m.head, cfg, qa, zt, n_books_use=n_books_use)
+    with fp32_exact(a.dtype == torch.float32):
+        qa, zt = backbone_latents(m, a, tc, cfg)
+        return ar_roll(m.head, cfg, qa, zt, n_books_use=n_books_use)
 
 
 @torch.no_grad()
 def forward_eval(m: CodecModules, a: torch.Tensor, tc: torch.Tensor,
                  n_books_use: Optional[int] = None,
                  cfg: Optional[CodecConfig] = None) -> torch.Tensor:
-    """Full encode + decode -> tactile waveform [B, 1, T]."""
+    """Full encode + decode -> tactile waveform [B, 1, T]; true fp32 in fp32."""
     cfg = cfg or m.cfg
-    z_run, _ = encode_latents(m, a, tc, n_books_use=n_books_use, cfg=cfg)
-    return m.tactile_dac.decoder(z_run, cfg.dac)
+    with fp32_exact(a.dtype == torch.float32):
+        z_run, _ = encode_latents(m, a, tc, n_books_use=n_books_use, cfg=cfg)
+        return m.tactile_dac.decoder(z_run, cfg.dac)
 
 
 @torch.no_grad()
@@ -166,8 +170,14 @@ def decode_from_codes(m: CodecModules, a: torch.Tensor, codes: torch.Tensor,
                       cfg: Optional[CodecConfig] = None) -> torch.Tensor:
     """Receiver: audio waveform [B, 1, T] + codes [B, T_lat, n_use] -> tactile
     waveform. Re-encodes the audio, replays the predictor and adds the decoded
-    residual; no tactile input is needed."""
-    head, cfg = m.head, cfg or m.cfg
+    residual; no tactile input is needed. True fp32 in fp32 (a's dtype)."""
+    with fp32_exact(a.dtype == torch.float32):
+        return _decode_from_codes(m, a, codes, cfg or m.cfg)
+
+
+def _decode_from_codes(m: CodecModules, a: torch.Tensor, codes: torch.Tensor,
+                       cfg: CodecConfig) -> torch.Tensor:
+    head = m.head
     za = m.audio_dac.encoder(a, cfg.dac)
     qa, _ = m.audio_dac.quantizer.quantize(za)
     B, C, T = qa.shape

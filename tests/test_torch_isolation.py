@@ -71,7 +71,8 @@ from {PORT}.core.config import CodecConfig
 from {PORT}.models import allpred_ar
 from {PORT}.eval.serving import StreamingCodec
 m = allpred_ar.codec_init(CodecConfig().tiny(), torch.Generator().manual_seed(0))
-sc = StreamingCodec(m, batch=1, frame_sec=0.2, fast=False, device="cpu")
+sc = StreamingCodec(m, batch=1, frame_sec=0.2, fast=False, compute_dtype=torch.float32,
+                    device="cpu")
 rng = np.random.default_rng(0)
 a, t = (0.1 * rng.standard_normal((2, 1, 1, 4800))).astype(np.float32)
 streams = sc.encode_to_bytes(a, t)

@@ -199,7 +199,8 @@ def test_streaming_codec_sends_jax_codes_with_explicit_flags(serving_pair, flags
     a, tc = (0.1 * rng.standard_normal((2, 1, 1, 9600))).astype(np.float32)
     jsc = JStreamingCodec(jp, jcfg, batch=1, frame_sec=0.4, fast=False,
                           compute_dtype=jnp.float32, **flags)
-    sc = StreamingCodec(m, batch=1, frame_sec=0.4, fast=False, device="cpu", **flags)
+    sc = StreamingCodec(m, batch=1, frame_sec=0.4, fast=False, compute_dtype=torch.float32,
+                        device="cpu", **flags)
     assert all(getattr(sc.cfg.dac, k) == getattr(jsc.cfg.dac, k) for k in FLAGS)
     _, jcodes = jsc.encode(jnp.asarray(a), jnp.asarray(tc))
     _, codes = sc.encode(a, tc)
@@ -215,8 +216,9 @@ def test_none_resolves_every_flag_to_off():
     batch 8 when fast; the port leaves all four off until the card decides."""
     codec = allpred_ar.codec_init(CodecConfig().tiny(), torch.Generator().manual_seed(0))
     for fast in (True, False):
-        sc = StreamingCodec(codec, batch=1, frame_sec=0.2, fast=fast, device="cpu")
+        sc = StreamingCodec(codec, batch=1, frame_sec=0.2, fast=fast, device="cpu",
+                            compute_dtype=torch.bfloat16 if fast else torch.float32)
         assert not any(getattr(sc.cfg.dac, k) for k in FLAGS)
     sc = StreamingCodec(codec, batch=1, frame_sec=0.2, fast=False, device="cpu",
-                        time_major=True, poly_upsample=False)
+                        compute_dtype=torch.float32, time_major=True, poly_upsample=False)
     assert sc.cfg.dac.time_major and not sc.cfg.dac.poly_upsample

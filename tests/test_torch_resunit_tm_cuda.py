@@ -1,5 +1,5 @@
 """The time-major residual-unit stack kernel (K3) on the card, against its
-plain version.
+plain version: bf16 on the tensor cores, fp32 on FFMA.
 
 Marked ``cuda``: each test skips without a card. The file imports neither jax
 nor the JAX package, so it also runs on a machine with the card, which has
@@ -54,11 +54,34 @@ def test_kernel_matches_plain_on_card(cuda, dtype, tol, b, c, t, n_units, post):
     with torch.no_grad():
         before = resunit_tm.launches
         got = resunit_tm.resunit_stack_tm(units, x, dils, pa)
-        assert resunit_tm.launches == before + 2 * n_units
+        assert resunit_tm.launches == before + resunit.stack_launches(n_units, dtype)
         ref = resunit_tm.resunit_stack_tm_ref(units, x, dils, pa)
     torch.cuda.synchronize()
     err = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
     assert got.dtype == dtype and got.shape == x.shape and err <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,t,n_units,post", [
+    (2, 96, 1000, 3, True), (2, 24, 1000, 3, False), (1, 96, 77, 3, True),
+    (2, 24, 20, 3, True), (2, 40, 5, 3, False), (2, 20, 300, 2, True), (1, 1, 600, 3, True),
+])
+def test_bf16_ragged_shapes(cuda, b, c, t, n_units, post):
+    """bf16 on the tensor cores with C off every tile (96, 24, 40, 1, 20;
+    C % 8 != 0 stages h2 without cp.async), T off the t tile and under the
+    stack's 39-row halo, batch 2: within 2e-2 of the plain version."""
+    units = _units(c * t, c, n_units, cuda)
+    x = torch.randn(b, t, c, generator=torch.Generator().manual_seed(t)).to(cuda, torch.bfloat16)
+    pa = torch.full((c,), 1.2, device=cuda) if post else None
+    dils = resunit.DILATIONS[:n_units]
+    with torch.no_grad():
+        before = resunit_tm.launches
+        got = resunit_tm.resunit_stack_tm(units, x, dils, pa)
+        assert resunit_tm.launches == before + resunit.stack_launches(n_units, torch.bfloat16)
+        ref = resunit_tm.resunit_stack_tm_ref(units, x, dils, pa)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all()) and err <= 2e-2
 
 
 @pytest.mark.cuda
