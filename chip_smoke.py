@@ -18,7 +18,9 @@ random ones made from ``--seed``. Phases, one line of numbers each:
    spills and shared memory from ptxas (and the dynamic shared memory of
    each tensor-core tile); then ``sass``: the HMMA (tensor-core)
    instructions that ``cuobjdump -sass`` finds in the two stack libraries,
-   which must be more than 0 in both;
+   which must be more than 0 in both, and in K2's library, which must hold
+   no HMMA and no FFMA (its scores are separately rounded fp32 products and
+   sums);
 2. kernel check, each kernel against its plain version on the same inputs:
    K1 (``resunit_stack``) at the eight stack shapes of the default path and
    K3 (``resunit_stack_tm``) at the four narrow ones of the time-major path,
@@ -29,7 +31,9 @@ random ones made from ``--seed``. Phases, one line of numbers each:
    at the head RVQ's shapes, ties and ``n_books_use`` included (indices
    equal to the plain version's and to ``ops/rvq.py::rvq_quantize``'s,
    q_sum bit-equal), timed beside the plain version and the score products
-   alone as one fp32 ``torch.matmul``;
+   alone as one fp32 ``torch.matmul``, each by CUDA events (the host's time
+   inside) and by device time (torch.profiler's kernel times), with K2's
+   launch shape and its instance's registers and spills;
 3. load: the codec's modules, read by the port's own checkpoint reader or
    made from the seed, moved to the card;
 4. round trip, default configuration: fp32 and bf16 serving on a 1 s signal
@@ -160,6 +164,29 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn`` in ms, the host's time left out:
+    the mean CUDA kernel time that torch.profiler records over ``reps``
+    calls, times the kernels a call launches. The profiler now and then
+    drops kernel events, so the mean is over those it kept, and a profile
+    that kept none is taken again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+        if us:
+            return sum(us) / len(us) * max(1, round(len(us) / reps)) / 1e3
+    raise RuntimeError("torch.profiler recorded no kernel in three tries")
+
+
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     ref = ref.double()
     return float((got.double() - ref).abs().max() / ref.abs().max().clamp_min(1e-12))
@@ -171,19 +198,18 @@ def dtype_name(dt: torch.dtype) -> str:
 
 class Record:
     """One kernel's sums over the shapes it was checked at, per dtype: its
-    time, its plain version's, the library call's, its bound and the worst
-    absolute error against the plain version."""
-
-    KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+    time, its plain version's, the library call's, its bound (and any other
+    time given, such as device times) and the worst absolute error against
+    the plain version."""
 
     def __init__(self):
         self.sums: dict = {}
         self.max_abs_err: dict = {}
 
     def add(self, dt: torch.dtype, abs_err: float, **ms) -> None:
-        tot = self.sums.setdefault(dt, dict.fromkeys(self.KEYS, 0.0))
-        for k in self.KEYS:
-            tot[k] += ms[k]
+        tot = self.sums.setdefault(dt, {})
+        for k, v in ms.items():
+            tot[k] = tot.get(k, 0.0) + v
         self.max_abs_err[dt] = max(self.max_abs_err.get(dt, 0.0), abs_err)
 
     def report(self, name: str) -> None:
@@ -310,6 +336,14 @@ def rvq_bound(n: int, k: int, d: int, use: int) -> dict:
                  torch.float32)
 
 
+def rvq_instance(tokens: int) -> dict:
+    """ptxas's registers and spills of K2's instance at ``tokens`` a block."""
+    for name, numbers in ptxas_summary(_build.build_log.get("rvq", {}).get("ptxas", "")).items():
+        if f"rvq_kernelILi{tokens}E" in name:
+            return numbers
+    return {}
+
+
 @torch.no_grad()
 def check_rvq(rec: Record, case: str, books: torch.Tensor, x: torch.Tensor,
               use=None) -> None:
@@ -330,14 +364,21 @@ def check_rvq(rec: Record, case: str, books: torch.Tensor, x: torch.Tensor,
          f"{same_rvq}; q_sum bit-equal {q_bits}")
     n_use = idx.shape[1]
     sel = books[:n_use].float()
-    ms = {"ms": cuda_ms(lambda: vq.rvq_lookup_fused(books, x, use)),
+    kernel = lambda: vq.rvq_lookup_fused(books, x, use)
+    library = lambda: torch.matmul(x[None], sel.transpose(1, 2))
+    ms = {"ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
           "plain_ms": cuda_ms(lambda: vq.rvq_lookup_ref(books, x, use), reps=3),
-          "library_ms": cuda_ms(lambda: torch.matmul(x[None], sel.transpose(1, 2))),
+          "library_ms": cuda_ms(library), "library_device_ms": device_ms(library),
           **rvq_bound(x.shape[0], books.shape[1], x.shape[1], n_use)}
     rec.add(torch.float32, abs_err, **ms)
+    # a checkout from before K2's redesign has no plan: this script then
+    # times its kernel all the same
+    launch = vq.plan(x.shape[0], books.shape[1], x.shape[1]) if hasattr(vq, "plan") else {}
     say("kernel_check", kernel="rvq_lookup", case=case, N=x.shape[0], books=n_use,
         K=books.shape[1], indices_equal_plain=same_ref, indices_equal_rvq_quantize=same_rvq,
-        q_sum_bit_equal=q_bits, max_abs_err=abs_err, **ms)
+        q_sum_bit_equal=q_bits, max_abs_err=abs_err, **ms,
+        device_ms_by="torch.profiler, mean kernel time a call", launch=launch,
+        ptxas=rvq_instance(launch.get("tokens_per_block", 0)))
 
 
 def check_rvq_cases(gen: torch.Generator) -> None:
@@ -691,15 +732,20 @@ def cuobjdump() -> str:
 
 
 def sass_check() -> None:
-    """HMMA (tensor-core MMA) instructions in the two stack libraries' SASS."""
+    """HMMA (tensor-core MMA) instructions in the two stack libraries' SASS;
+    in K2's, none, and no FFMA: its scores stay separately rounded fp32."""
     tool, counts = cuobjdump(), {}
-    for mod in (resunit, resunit_tm):
+    for mod in (resunit, resunit_tm, vq):
         name = mod.LIBRARY[0]
         sass = subprocess.run([tool, "-sass", os.path.join(_build.BUILD_DIR, f"lib{name}.so")],
                               capture_output=True, text=True, timeout=300, check=True).stdout
-        counts[f"lib{name}.so"] = len(re.findall(r"\bHMMA\.", sass))
-    say("sass", tool=tool, hmma_instructions=counts)
-    gate(all(n > 0 for n in counts.values()), f"no HMMA instruction in {counts}")
+        counts[f"lib{name}.so"] = {op: len(re.findall(rf"\b{op}\b", sass))
+                                   for op in ("HMMA", "FFMA", "FMUL", "FADD")}
+    say("sass", tool=tool, instructions=counts)
+    stacks = [counts[f"lib{mod.LIBRARY[0]}.so"]["HMMA"] for mod in (resunit, resunit_tm)]
+    gate(all(n > 0 for n in stacks), f"no HMMA instruction in a stack library: {counts}")
+    k2 = counts[f"lib{vq.LIBRARY[0]}.so"]
+    gate(k2["HMMA"] == 0 and k2["FFMA"] == 0, f"librvq.so scores off plain fp32: {k2}")
 
 
 def main() -> int:

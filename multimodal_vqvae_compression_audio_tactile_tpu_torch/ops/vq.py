@@ -10,6 +10,10 @@ dimension in a fixed order with separately rounded products and sums, in the
 kernel (``csrc/rvq_lookup.cu``) and in ``rvq_lookup_ref`` alike, so the two
 give the same indices and bit-equal ``q_sum``.
 
+A launch takes ``pick_tokens(N)`` tokens a block, so that the grid fills the
+card where N allows; ``plan`` gives the rest of its shape (threads, codes a
+shared-memory stage, dynamic shared memory), which the kernel works out.
+
 As in the JAX package, the serving path does not call this module: its AR
 roll quantizes with ``ops/rvq.py::rvq_quantize``, which picks the same codes
 up to the order of fp32 sums.
@@ -23,12 +27,24 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
+from .resunit import SMS, _f32
 
 # Kernel launches made by ``rvq_lookup_fused`` (one per call); reset it to 0
 # before a run to count that run's launches.
 launches = 0
 
-MAX_DIM = 512     # the kernel keeps 96 rows of D + 1 floats in shared memory
+MAX_DIM = 512     # at 16 tokens a block, two stages of 40 codes still fit
+TOKEN_TILES = (16, 8, 4, 2, 1)    # tokens a block, in order of preference
+
+
+def pick_tokens(N: int) -> int:
+    """Tokens a block for N tokens: the most of ``TOKEN_TILES`` whose grid
+    still fills the card's ``SMS`` multiprocessors, else 1 (every token its
+    own block). More tokens a block read each book fewer times."""
+    for tn in TOKEN_TILES:
+        if -(-N // tn) >= SMS:
+            return tn
+    return 1
 
 
 def _use(books: torch.Tensor, n_books_use: Optional[int]) -> int:
@@ -60,12 +76,25 @@ def rvq_lookup_ref(books: torch.Tensor, x: torch.Tensor,
 
 # (library name, source under csrc/)
 LIBRARY = ("rvq", "rvq_lookup.cu")
-_SIGNATURES = {"rvq_lookup": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-               + [ctypes.c_void_p]}
+_SIGNATURES = {"rvq_lookup": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+               "rvq_plan": [ctypes.c_int] * 3 + [ctypes.c_void_p]}
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load(*LIBRARY, _SIGNATURES)
+
+
+def plan(N: int, K: int, D: int) -> dict:
+    """The kernel's launch for N tokens against books of K codes of D: grid,
+    tokens and threads a block, codes a stage, stages a book and dynamic
+    shared memory (asks the built library, so on the card's machine only)."""
+    tn = pick_tokens(N)
+    out = (ctypes.c_int * 3)()
+    if _lib().rvq_plan(tn, K, D, out) != 0:
+        raise ValueError(f"rvq_lookup: no launch for K={K}, D={D}")
+    threads, kc, smem = out
+    return {"grid": -(-N // tn), "tokens_per_block": tn, "threads": threads,
+            "codes_per_stage": kc, "stages_per_book": -(-K // kc), "smem_bytes": smem}
 
 
 def rvq_lookup_fused(books: torch.Tensor, x: torch.Tensor,
@@ -75,29 +104,32 @@ def rvq_lookup_fused(books: torch.Tensor, x: torch.Tensor,
     int32). CUDA tensors go through the kernel, CPU tensors through
     ``rvq_lookup_ref``."""
     global launches
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return rvq_lookup_ref(books, x, n_books_use)
-    if x.device.type != "cuda":
-        raise ValueError(f"rvq_lookup_fused: unsupported device {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"rvq_lookup_fused: unsupported device {dev}")
     if x.dim() != 2 or books.dim() != 3 or books.shape[2] != x.shape[1]:
         raise ValueError(f"rvq_lookup_fused: x {tuple(x.shape)} and books "
                          f"{tuple(books.shape)} do not match")
-    if books.device != x.device:
+    if books.device != dev:
         raise ValueError("rvq_lookup_fused: books and x on different devices")
     N, D = x.shape
-    K = books.shape[1]
+    n_books, K = books.shape[:2]
     if not 1 <= D <= MAX_DIM:
         raise ValueError(f"rvq_lookup_fused: code dim {D} not in [1, {MAX_DIM}]")
     use = _use(books, n_books_use)
-    if N == 0 or use < 1:
-        raise ValueError("rvq_lookup_fused: no tokens or no books")
-    xf = x.detach().float().contiguous()
-    bf = books.detach()[:use].float().contiguous()
-    q_sum = torch.empty(N, D, dtype=torch.float32, device=x.device)
-    idx = torch.empty(N, use, dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _lib().rvq_lookup(xf.data_ptr(), bf.data_ptr(), q_sum.data_ptr(),
-                           idx.data_ptr(), N, K, D, use, stream)
+    if N == 0 or K == 0 or use < 1:
+        raise ValueError("rvq_lookup_fused: no tokens, codes or books")
+    xf = _f32(x)
+    bf = _f32(books if use == n_books else books[:use])
+    q_sum = xf.new_empty((N, D))
+    idx = xf.new_empty((N, use), dtype=torch.int32)
+    # the current stream's raw handle, as PyTorch's own generated kernels take
+    # it, without building a Stream object on every call
+    rc = _lib().rvq_lookup(xf.data_ptr(), bf.data_ptr(), q_sum.data_ptr(), idx.data_ptr(),
+                           N, K, D, use, pick_tokens(N),
+                           torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError(f"rvq_lookup launch failed: CUDA error {rc}")
     launches += 1

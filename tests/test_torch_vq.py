@@ -40,6 +40,11 @@ CASES = [
     (8, 128, 96, 1, 16, None, False),    # one AR chunk of the head RVQ at batch 1
     (10, 512, 96, 4, 75, None, False),   # K = 512, 10 books
     (4, 64, 96, 2, 30, None, True),      # forced exact ties
+    (8, 128, 96, 1, 1, None, False),     # N = 1
+    (8, 128, 96, 1, 17, None, False),    # one token more than an AR chunk
+    (2, 128, 96, 1, 2113, None, False),  # 132 blocks of 16 tokens and one token more
+    (3, 512, 96, 1, 16, 2, True),        # K = 512 (streamed), n_books_use < n_books, ties
+    (2, 100, 7, 3, 11, None, False),     # K and D off every tile
 ]
 
 
@@ -60,6 +65,15 @@ def test_matches_pallas_interpret_and_rvq_quantize(n_books, K, D, B, T, use, dup
     np.testing.assert_allclose(q.numpy(), q_rvq.numpy(), rtol=1e-6, atol=1e-6)
     if dup:
         assert int(idx.max()) < K // 2      # every tie went to the first index
+
+
+@pytest.mark.parametrize("n,tokens", [(1, 1), (16, 1), (131, 1), (264, 2), (300, 2),
+                                      (1056, 8), (2112, 16), (2400, 16), (10 ** 6, 16)])
+def test_token_tile_fills_the_card_where_n_allows(n, tokens):
+    """The kernel's tokens a block: the most whose grid reaches the H100's 132
+    multiprocessors, else one token a block."""
+    assert vq.pick_tokens(n) == tokens
+    assert -(-n // tokens) >= vq.SMS or tokens == 1
 
 
 def test_lookup_ref_is_the_cpu_path_and_counts_nothing():
