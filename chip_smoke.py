@@ -64,7 +64,24 @@ random ones made from ``--seed``. Phases, one line of numbers each:
    kernel kind (torch.profiler), and the card's busy share, for the default
    and the time-major configuration;
 9. small reference: the trained tiny codec of artifacts/evidence_tiny on the
-   card against the same codec on the CPU (the plain path).
+   card against the same codec on the CPU (the plain path);
+10. conceal: ``StreamingConcealer`` (packet-loss concealment) at the same
+   full width, on the codec's backbones with a PLC head of 2 blocks made
+   from the seed (``mask_embed`` on, as the trained tiny heads), on a
+   uniform loss mask (``masks.make_token_loss_mask``, packets of 2 tokens,
+   p 0.5): the launches of each call (8 K1 stacks: 56 in bf16, 48 in fp32;
+   under ``tail_kernel`` 4 K3 and 4 K1 stacks: 28 and 28 in bf16), its
+   latency by CUDA events, its device time, busy share and K1/K3 share by
+   torch.profiler, and ``throughput_frames_per_sec`` (CUDA events; the
+   codec's after its profile); fp32 through the kernels against the plain
+   stacks (within 1e-5, bit-equality reported); with no token lost, the
+   fp32 output against the tactile decoder of the same latents (within
+   1e-6); the bf16 concealed latent stream against fp32 within
+   docs/PARITY.md's continuous-latent 2.5e-2;
+11. plc_eval: the PLC evaluators (uniform and category) on the trained tiny
+   heads of artifacts/evidence_tiny and its 3 held-out pairs, the model on
+   the card in fp32 (K1 at C 1-64, 120 launches a file): their summaries
+   against MANIFEST.json's within its tolerances, and their wall time.
 
 Then a JSON line of per-kernel numbers and, last, the device line. An error
 raises at once; a numeric gate that fails is reported when it fails, and the
@@ -77,6 +94,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import faulthandler
 import json
 import importlib.util
@@ -91,12 +109,20 @@ import numpy as np
 import torch
 
 from multimodal_vqvae_compression_audio_tactile_tpu_torch import _build
-from multimodal_vqvae_compression_audio_tactile_tpu_torch.convert import load_codec
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.convert import load_codec, load_plc
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.config import CodecConfig
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.precision import fp32_exact
-from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval.serving import StreamingCodec
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.data import pair_stems, split_items
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval.serving import (
+    StreamingCodec, StreamingConcealer)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.models import allpred_ar, dac
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.ops import resunit, resunit_tm, rvq, vq
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc import masks
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc import model as plc
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc.eval_categories import (
+    eval_plc_categories)
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc.eval_uniform import eval_plc_uniform
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc.train import plc_config_from_meta
 
 # Published dense peaks of one H100 SXM at 700 W: fp32 outside the tensor
 # cores, bf16 in them, and HBM3 bandwidth.
@@ -132,7 +158,9 @@ KERNELS = {   # name -> (module with the wrapper and its counter, source, TPU ke
 PARITY_STREAMS = 64
 TIME_MAJOR = dict(time_major=True, time_major_enc=True, tail_kernel=True,
                   poly_upsample=True)
-ARTIFACTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts")
+REPO = os.path.dirname(os.path.abspath(__file__))
+ARTIFACTS = os.path.join(REPO, "artifacts")
+EVIDENCE = os.path.join(ARTIFACTS, "evidence_tiny")
 R5 = (os.path.join(ARTIFACTS, "r5", "backbone_best.msgpack"),
       os.path.join(ARTIFACTS, "r5", "rvqB8_K128", "best.msgpack"))
 T0 = time.perf_counter()
@@ -648,15 +676,14 @@ def kind_of(kernel: str) -> str:
     return "elementwise and other"
 
 
-def profile_phase(name: str, sc: StreamingCodec, a, tc, codes) -> None:
-    """Device time of one bf16 encode and one receiver decode, by kernel kind,
-    from torch.profiler's CUDA kernel events; busy share = kernel time over
-    the profiled wall time."""
+def profile_calls(name: str, calls: dict) -> dict:
+    """Device time of one call of each of ``calls``, by kernel kind, from
+    torch.profiler's CUDA kernel events; busy share = kernel time over the
+    profiled wall time. -> {call: {"device_ms", "busy_share", "by_kind"}}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    calls = {"encode": lambda: sc.encode(a, tc),
-             "decode_from_codes": lambda: sc.decode_from_codes(a, codes)}
+    out = {}
     for call, fn in calls.items():
         fn()
         torch.cuda.synchronize()
@@ -672,10 +699,20 @@ def profile_phase(name: str, sc: StreamingCodec, a, tc, codes) -> None:
             ms, n = by_kind.get(kind, (0.0, 0))
             by_kind[kind] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
         busy = sum(ms for ms, _ in by_kind.values())
+        kinds = {k: {"ms": ms, "launches": n} for k, (ms, n) in
+                 sorted(by_kind.items(), key=lambda kv: -kv[1][0])}
         say("profile", mode=name, call=call, wall_ms_profiled=wall_ms, device_ms=busy,
             busy_share=busy / wall_ms if wall_ms else None, kernels=len(kernels),
-            by_kind={k: {"ms": ms, "launches": n} for k, (ms, n) in
-                     sorted(by_kind.items(), key=lambda kv: -kv[1][0])})
+            by_kind=kinds)
+        out[call] = {"device_ms": busy, "busy_share": busy / wall_ms if wall_ms else None,
+                     "by_kind": kinds}
+    return out
+
+
+def profile_phase(name: str, sc: StreamingCodec, a, tc, codes) -> None:
+    """Device time of one bf16 encode and one receiver decode, by kernel kind."""
+    profile_calls(name, {"encode": lambda: sc.encode(a, tc),
+                         "decode_from_codes": lambda: sc.decode_from_codes(a, codes)})
 
 
 def small_reference(seed: int) -> None:
@@ -698,6 +735,142 @@ def small_reference(seed: int) -> None:
         k1_launches=counts["resunit_stack"])
     gate(agree == 1.0 and err <= 1e-4 and counts["resunit_stack"] == 48,
          "the trained tiny codec on the card disagrees with the CPU")
+
+
+def concealer_modules(codec: allpred_ar.CodecModules, head: plc.PLCHead,
+                      tail_kernel: bool) -> plc.PLCModules:
+    """A concealment model on the codec's two backbones and ``head``, its
+    config's ``tail_kernel`` set (``StreamingConcealer`` takes it from
+    there, as the JAX package's takes it from ``cfg``)."""
+    cfg = codec.cfg
+    cfg = dataclasses.replace(cfg, dac=dataclasses.replace(cfg.dac, tail_kernel=tail_kernel))
+    with torch.device("meta"):
+        pm = plc.PLCModules(cfg, n_layers=len(head.predict_extra) + 1)
+    pm.audio_dac, pm.tactile_dac, pm.head = codec.audio_dac, codec.tactile_dac, head
+    return pm
+
+
+@torch.no_grad()
+def concealed_latents(pm: plc.PLCModules, a: torch.Tensor, zt_rx: torch.Tensor,
+                      mk: torch.Tensor, fast: bool) -> torch.Tensor:
+    """The concealed latent stream that ``conceal`` decodes (the predictor's
+    tokens where lost, the received ones elsewhere), in the serving dtype."""
+    dt, cfg = dtype_of(fast), pm.cfg.fast_serving() if fast else pm.cfg
+    with fp32_exact(not fast):
+        qa, _ = pm.audio_dac.quantizer.quantize(pm.audio_dac.encoder(a.to(dt), cfg.dac))
+        z_pred, m3 = plc.predict_latents(pm.head, cfg, qa, zt_rx.to(dt), mk, mask_embed=True)
+    return torch.where(m3, z_pred, zt_rx.to(dt))
+
+
+@torch.no_grad()
+def conceal_phase(codec: allpred_ar.CodecModules, seed: int, weights: str) -> None:
+    """``StreamingConcealer`` at the codec's full width, batch 1, 1 s, in the
+    default layout and under ``tail_kernel``, bf16 and fp32; see the module
+    docstring (phase 10) for the gates."""
+    cfg = codec.cfg
+    head = plc.plc_head_init(cfg, torch.Generator().manual_seed(seed), n_layers=2).cuda()
+    a_np, tc = signal(seed + 2, 24000)
+    a = torch.from_numpy(a_np).cuda()
+    mk = torch.from_numpy(masks.make_token_loss_mask(np.random.default_rng(seed), 1, 75,
+                                                     2, 0.5)).cuda()
+    with fp32_exact():
+        zt = codec.tactile_dac.encoder(torch.from_numpy(tc).cuda(), cfg.dac)
+    zt_rx = zt * ~mk[:, None, :]                   # what the receiver holds
+    served = {}
+    for layout, tail in (("default", False), ("tail_kernel", True)):
+        pm = concealer_modules(codec, head, tail)
+        for fast in (True, False):
+            sc = StreamingConcealer(pm, batch=1, mask_embed=True, fast=fast,
+                                    compute_dtype=dtype_of(fast))
+            y, n, host_ms = counted(lambda: sc.conceal(a, zt_rx, mk))
+            want = expect(fast, k1=4, k3=4) if tail else expect(fast, k1=8)
+            name = f"conceal_{layout}_{dtype_name(dtype_of(fast))}"
+            gate(n == want, f"{name}: launches {n}, expected {want}")
+            gate(y.shape == (1, 1, 24000) and bool(torch.isfinite(y).all()),
+                 f"{name}: concealed waveform not finite or mis-shaped")
+            latency = cuda_ms(lambda: sc.conceal(a, zt_rx, mk), reps=10)
+            say("conceal", layout=layout, dtype=dtype_name(dtype_of(fast)), launches=n,
+                latency_ms=latency, first_call_host_ms=host_ms,
+                lost_tokens=int(mk.sum()), backbone_weights=weights)
+            served[(layout, fast)] = (sc, y)
+
+    sc32, y32 = served[("default", False)]
+    with plain_stacks():
+        y_plain, n_plain, _ = counted(lambda: sc32.conceal(a, zt_rx, mk))
+    gate(not any(n_plain.values()), f"plain conceal launched a kernel: {n_plain}")
+    err_plain = rel_err(y32, y_plain)
+    none = torch.zeros_like(mk)
+    with fp32_exact():
+        y_dec = codec.tactile_dac.decoder(zt, sc32.cfg.dac)
+    err_none = rel_err(sc32.conceal(a, zt, none), y_dec)
+    z = {fast: concealed_latents(concealer_modules(codec, head, False), a, zt_rx, mk, fast)
+         for fast in (True, False)}
+    z_err = rel_err(z[True].float(), z[False])
+    say("conceal_checks", fp32_kernels_vs_plain_rel_err=err_plain,
+        fp32_kernels_bit_equal_plain=bool(torch.equal(y32, y_plain)),
+        no_loss_vs_tactile_decoder_rel_err=err_none,
+        bf16_vs_fp32_concealed_latent_rel_err=z_err,
+        bf16_vs_fp32_waveform_rel_err=rel_err(served[("default", True)][1], y32))
+    gate(err_plain <= 1e-5, f"conceal fp32 through the kernels vs plain: {err_plain:.3e}")
+    gate(err_none <= 1e-6, f"conceal with no loss vs the tactile decoder: {err_none:.3e}")
+    gate(z_err < 2.5e-2, f"conceal bf16 concealed latent vs fp32: {z_err:.3e} >= 2.5e-2")
+
+    say("conceal_throughput", layout="default", dtype="bfloat16",
+        **served[("default", True)][0].throughput_frames_per_sec(repeats=10))
+    for layout in ("default", "tail_kernel"):
+        sc = served[(layout, True)][0]
+        prof = profile_calls(f"conceal_{layout}_bfloat16",
+                             {"conceal": lambda: sc.conceal(a, zt_rx, mk)})["conceal"]
+        kinds = prof["by_kind"]
+        say("conceal_profile", layout=layout, dtype="bfloat16", device_ms=prof["device_ms"],
+            busy_share=prof["busy_share"],
+            k1_share=kinds.get("K1 resunit_stack", {}).get("ms", 0.0) / prof["device_ms"],
+            k3_share=kinds.get("K3 resunit_stack_tm", {}).get("ms", 0.0) / prof["device_ms"])
+
+
+def plc_eval_phase() -> None:
+    """The PLC evaluators on the trained tiny heads and the 3 held-out pairs
+    of artifacts/evidence_tiny, the model on the card in fp32; the summaries
+    against MANIFEST.json's within its tolerances."""
+    with open(os.path.join(EVIDENCE, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    tol, ref = manifest["tolerances"], manifest["smoke_numbers"]
+    _, pairs = split_items(pair_stems(os.path.join(EVIDENCE, "corpus", "audio"),
+                                      os.path.join(EVIDENCE, "corpus", "tactile")), 0.2, 300, 7)
+    out = os.path.join(REPO, "build", "chip_smoke_plc_eval")
+    for mode, evaluate, files in (("uniform", eval_plc_uniform, len(pairs)),
+                                  ("category", eval_plc_categories, 3 * len(pairs))):
+        head_dir = os.path.join(EVIDENCE, f"plc_{mode}")
+        pcfg = plc_config_from_meta(head_dir)
+        m = load_plc(os.path.join(EVIDENCE, "backbone", "best.msgpack"), head_dir,
+                     CodecConfig().tiny(), pcfg.n_layers)
+        t0 = time.perf_counter()
+        summary, counts, _ = counted(lambda: evaluate(m, pairs, os.path.join(out, mode), pcfg,
+                                                      seed=7, log=lambda *_: None))
+        wall_s = time.perf_counter() - t0
+        want = ref[f"plc_{mode}"]
+        flat = ([(want, summary)] if mode == "uniform"
+                else [(want[c], summary[c]) for c in masks.CATEGORIES])
+        worst = {"psnr_db": 0.0, "stsim": 0.0}
+        for w, got in flat:
+            for k, v in w.items():
+                if k == "num_files" or np.isnan(v):        # counts; NaN without dec_ft
+                    gate(got[k] == v or (np.isnan(v) and np.isnan(got[k])),
+                         f"plc_eval {mode} {k}: {got[k]} against {v}")
+                else:
+                    key = "stsim" if "stsim" in k else "psnr_db"
+                    worst[key] = max(worst[key], abs(got[k] - v))
+        say("plc_eval", mode=mode, files=files, wall_s=wall_s, launches=counts,
+            max_deviation_from_manifest=worst, tolerances=tol,
+            mean_psnr_global_db=(summary["mean_psnr_global_db"] if mode == "uniform" else
+                                 {c: summary[c]["mean_psnr_global_db"]
+                                  for c in masks.CATEGORIES}))
+        gate(worst["psnr_db"] <= tol["psnr_db"] and worst["stsim"] <= tol["stsim"],
+             f"plc_eval {mode} off MANIFEST.json: {worst}")
+        # per file: the concealed forward (3 encoders' and the decoder's
+        # stacks) and the zero-fill floor (the tactile encoder and decoder)
+        gate(counts["resunit_stack"] == files * 20 * resunit.stack_launches(3, torch.float32),
+             f"plc_eval {mode}: K1 launches {counts}")
 
 
 def ptxas_summary(log: str) -> dict:
@@ -806,7 +979,11 @@ def main() -> int:
     tail_kernel_round_trip(m, a, tc, many, default)
     for name, res in (("default", default), ("time_major", tm)):
         profile_phase(name, res["bf16"]["codec"], a, tc, res["bf16"]["codes"])
+    say("codec_throughput", layout="default", dtype="bfloat16",
+        **default["bf16"]["codec"].throughput_frames_per_sec(repeats=10))
     small_reference(args.seed)
+    conceal_phase(m, args.seed, weights)
+    plc_eval_phase()
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} gate(s) failed", file=sys.stderr)
         return 1

@@ -10,8 +10,11 @@ parameter tree -> modules), ``models/`` (DAC backbone, AllPredAR codec),
 ``nn/layers.py`` (predictor blocks), ``ops/`` (head RVQ, the time-major
 convs, and the wrappers of the three CUDA kernels, whose sources are in
 ``csrc/``: the channels-first residual-unit stack K1, the time-major one K3
-and the fused residual-VQ lookup K2), ``eval/`` (bitstream and the streaming
-serving wrapper, whose layout options choose K1 or K3 for each stack).
+and the fused residual-VQ lookup K2), ``eval/`` (bitstream, metrics and the
+streaming serving wrappers, the codec's and the concealer's, whose layout
+options choose K1 or K3 for each stack), ``plc/`` (packet-loss masks, the
+concealment model, its evaluators), ``dsp/`` (STFT, mel, resampling,
+alignment), ``data/pairs.py`` and ``utils/`` (WAV and run-artifact files).
 
 Entry points take ``device=None``, which means CUDA; they run on the CPU only
 when the caller passes ``device="cpu"``.

@@ -15,6 +15,7 @@ Every conversion is strict: a missing, extra or mis-shaped leaf raises.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -24,7 +25,9 @@ from torch import nn
 from .core.config import CodecConfig, DacConfig
 from .models.allpred_ar import CodecModules, Head
 from .models.dac import DAC
+from .nn.layers import CrossPredictor
 from .ops.resunit import ResUnit
+from .plc.model import PLCHead, PLCModules
 from .train.checkpoint import Path, check_tree, load_checkpoint
 
 # How a JAX leaf maps to its tensor: None = same layout, "t01" = swap the
@@ -69,18 +72,21 @@ def dac_leaves(m: DAC) -> Iterator[Leaf]:
         yield ("quantizer", name), getattr(q, name), None
 
 
-def head_leaves(h: Head) -> Iterator[Leaf]:
-    """(JAX path, tensor, layout) for every parameter of the codec head."""
-    pr = h.predict
+def _predictor(p: Path, pr: CrossPredictor) -> Iterator[Leaf]:
     for name in ("ln_q", "ln_kv", "ffn_ln"):
         ln = getattr(pr, name)
-        yield ("predict", name, "scale"), ln.weight, None
-        yield ("predict", name, "bias"), ln.bias, None
+        yield p + (name, "scale"), ln.weight, None
+        yield p + (name, "bias"), ln.bias, None
     for name in ("q_proj", "k_proj", "v_proj", "out", "ffn_in", "ffn_out"):
         lin = getattr(pr, name)
-        yield ("predict", name, "w"), lin.weight, "t"
+        yield p + (name, "w"), lin.weight, "t"
         if lin.bias is not None:
-            yield ("predict", name, "b"), lin.bias, None
+            yield p + (name, "b"), lin.bias, None
+
+
+def head_leaves(h: Head) -> Iterator[Leaf]:
+    """(JAX path, tensor, layout) for every parameter of the codec head."""
+    yield from _predictor(("predict",), h.predict)
     yield ("tokennorm", "scale"), h.tokennorm.weight, None
     yield ("tokennorm", "bias"), h.tokennorm.bias, None
     yield ("scale",), h.scale, None
@@ -90,6 +96,18 @@ def head_leaves(h: Head) -> Iterator[Leaf]:
         yield (name, "b"), lin.bias, None
     yield ("vq_books",), h.vq_books, None
     yield ("vq_counts",), h.vq_counts, None
+
+
+def plc_head_leaves(h: PLCHead) -> Iterator[Leaf]:
+    """(JAX path, tensor, layout) for every parameter of a PLC head:
+    ``predict/...``, ``tokennorm/...``, ``mask_embed`` and, for a stacked
+    head, ``predict_extra/<i>/...``."""
+    yield from _predictor(("predict",), h.predict)
+    yield ("tokennorm", "scale"), h.tokennorm.weight, None
+    yield ("tokennorm", "bias"), h.tokennorm.bias, None
+    yield ("mask_embed",), h.mask_embed, None
+    for i, blk in enumerate(h.predict_extra):
+        yield from _predictor(("predict_extra", i), blk)
 
 
 def _jax_shape(t: torch.Tensor, kind: Optional[str]) -> Tuple[int, ...]:
@@ -125,6 +143,12 @@ def head_template(cfg: CodecConfig) -> Dict[Path, Tuple[int, ...]]:
         return _template(head_leaves(Head(cfg)))
 
 
+def plc_head_template(cfg: CodecConfig, n_layers: int = 1) -> Dict[Path, Tuple[int, ...]]:
+    """{JAX path: JAX shape} of a PLC-head tree of ``n_layers`` blocks."""
+    with torch.device("meta"):
+        return _template(plc_head_leaves(PLCHead(cfg, n_layers)))
+
+
 @torch.no_grad()
 def _load(leaves: Iterator[Leaf], tree: Any) -> None:
     leaves = list(leaves)
@@ -154,3 +178,29 @@ def load_codec(backbone_path: str, head_path: str, cfg: CodecConfig) -> CodecMod
     bb, _, _ = load_checkpoint(backbone_path, dac_template(cfg.dac))
     head, _, _ = load_checkpoint(head_path, head_template(cfg))
     return params_from_jax({"audio_dac": bb, "tactile_dac": bb, "head": head}, cfg)
+
+
+def plc_params_from_jax(tree: Any, cfg: CodecConfig, n_layers: int = 1) -> PLCModules:
+    """JAX ``CodecParams`` of a PLC model (``head`` a PLC head of
+    ``n_layers`` blocks) -> ``PLCModules`` on the CPU."""
+    m = PLCModules(cfg, n_layers)
+    _load(dac_leaves(m.audio_dac), _part(tree, "audio_dac"))
+    _load(dac_leaves(m.tactile_dac), _part(tree, "tactile_dac"))
+    _load(plc_head_leaves(m.head), _part(tree, "head"))
+    return m
+
+
+def load_plc(backbone_path: str, head_path: str, cfg: CodecConfig,
+             n_layers: int = 1) -> PLCModules:
+    """Concealment model from a backbone checkpoint (serving as both the audio
+    and the tactile backbone, as the JAX evaluation scripts load it) and a PLC
+    head: ``head_path`` is a checkpoint, or a run directory whose
+    ``best.msgpack`` is read, ``last.msgpack`` where there is no best (a run
+    cut short may never write one). Both are checked strictly."""
+    if os.path.isdir(head_path):
+        best = os.path.join(head_path, "best.msgpack")
+        head_path = best if os.path.exists(best) else os.path.join(head_path, "last.msgpack")
+    bb, _, _ = load_checkpoint(backbone_path, dac_template(cfg.dac))
+    head, _, _ = load_checkpoint(head_path, plc_head_template(cfg, n_layers))
+    return plc_params_from_jax({"audio_dac": bb, "tactile_dac": bb, "head": head}, cfg,
+                               n_layers)

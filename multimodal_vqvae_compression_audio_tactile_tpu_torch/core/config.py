@@ -1,7 +1,7 @@
 """Typed configuration of the codec (own copy; the port imports no JAX module).
 
-Mirrors ``DacConfig``, ``PredictorConfig``, ``RVQConfig`` and ``CodecConfig``
-of the JAX package field for field, minus the fused-stack options
+Mirrors ``DacConfig``, ``PredictorConfig``, ``RVQConfig``, ``CodecConfig``,
+``PLCConfig`` and ``EvalConfig`` of the JAX package field for field, minus the fused-stack options
 (``fused_resunits``, ``fused_resunits_b1``): the port always runs its
 channels-first stacks through its kernel K1. The layout options keep JAX's
 names and meanings: ``time_major``/``time_major_enc`` run the decoder/encoder
@@ -127,3 +127,42 @@ class CodecConfig:
         """Nominal bitrate: tokens/s * n_books * log2(n_embed) / 1000."""
         tps = self.dac.tokens_per_sec if tokens_per_sec is None else tokens_per_sec
         return tps * self.rvq.n_books * math.log2(self.rvq.n_embed) / 1000.0
+
+
+@dataclass(frozen=True)
+class PLCConfig:
+    """Packet-loss concealment workload: uniform packets of ``packet_tok``
+    tokens each lost with ``packet_loss_prob``, or the low/medium/high burst
+    categories. ``mask_embed`` adds the head's learned mask token at lost
+    positions; ``n_layers`` stacks cross-attention blocks (the first under
+    ``predict``, the others under ``predict_extra``)."""
+
+    packet_tok: int = 2
+    packet_loss_prob: float = 0.5
+    epochs: int = 50
+    mask_embed: bool = False
+    n_layers: int = 1
+    cat_probs: Tuple[float, float, float] = (0.52, 0.32, 0.16)  # low/medium/high
+    cat_burst_ms: Tuple[Tuple[float, float], ...] = (
+        (20.0, 120.0), (120.0, 320.0), (320.0, 1000.0))
+    cat_n_bursts: Tuple[Tuple[int, int], ...] = ((1, 2), (1, 3), (1, 4))
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Evaluation harness constants."""
+
+    eval_sr: int = 24000
+    orig_tactile_sr: int = 3000
+    max_align_shift: int = 200
+    pcm_kbps_baseline: float = 48.0       # 3 kHz * 16-bit mono
+    dac_nq_list: Tuple[int, ...] = (1, 2, 3, 4, 8)
+    vc_b_list: Tuple[int, ...] = (8, 12, 16, 20, 24, 48)
+    vc_fs_std_hz: float = 2800.0
+    vc_block_len: int = 512
+    latency_warmup: int = 3
+    latency_repeats: int = 10
+
+    @property
+    def vc_buffer_ms(self) -> float:
+        return 1000.0 * self.vc_block_len / self.vc_fs_std_hz

@@ -78,6 +78,14 @@ a, t = (0.1 * rng.standard_normal((2, 1, 1, 4800))).astype(np.float32)
 streams = sc.encode_to_bytes(a, t)
 y = sc.decode_from_bytes(a, streams)
 assert y.shape == (1, 1, 4800) and bool(torch.isfinite(y).all())
+import {PORT}.plc.eval_uniform, {PORT}.plc.eval_categories
+from {PORT}.eval.serving import StreamingConcealer
+from {PORT}.plc import masks, model as plc_model
+plc = plc_model.plc_init(CodecConfig().tiny(), torch.Generator().manual_seed(0), 2)
+scn = StreamingConcealer(plc, batch=1, frame_sec=0.2, mask_embed=True, device="cpu")
+mk = masks.make_token_loss_mask(rng, 1, 15, 2, 0.5)
+yc = scn.conceal(a, np.zeros((1, 64, 15), np.float32), mk)
+assert yc.shape == (1, 1, 4800) and bool(torch.isfinite(yc).all())
 assert not any(n.split(".")[0] in BLOCK for n in sys.modules)
 print("ISOLATED_OK", len(streams[0]))
 """
