@@ -81,7 +81,37 @@ random ones made from ``--seed``. Phases, one line of numbers each:
 11. plc_eval: the PLC evaluators (uniform and category) on the trained tiny
    heads of artifacts/evidence_tiny and its 3 held-out pairs, the model on
    the card in fp32 (K1 at C 1-64, 120 launches a file): their summaries
-   against MANIFEST.json's within its tolerances, and their wall time.
+   against MANIFEST.json's within its tolerances, and their wall time;
+12. codec_eval: the codec evaluators (``eval_backbone_codec`` at n_q 1, 2,
+   4, 8 and the proposed codec's rows), the model on the card in fp32, the
+   latency map first (``scripts/measure_latencies.py::measure``: bf16, every
+   stack through K1, CUDA events, p50/p95), then the rows with their K1
+   launches counted (a batch of 3 is one forward: 8 stacks a backbone
+   forward and one more encode probing the token rate, 12 stacks a proposed
+   forward; 6 launches a stack in fp32). (a) The trained tiny codec of
+   artifacts/evidence_tiny on its 3 held-out pairs against MANIFEST.json's
+   ``dac_baseline`` and ``proposed`` rows within its tolerances, and the
+   entropy-coded rates of its committed evaluation JSON (the same bytes).
+   (b) The VC-PWQ codec built from ``native/vcpwq`` into ``build/vcpwq/``,
+   the 16 corpus files coded at ``EvalConfig().vc_b_list``, and
+   ``eval_vc_pwq``'s six rows against the MANIFEST's. (c) Full width on the
+   same pairs: the round-5 sweep (``artifacts/r5``, its ``rvqB8_K128``
+   found by ``eval_proposed_runs``) where the checkout has it, else the
+   seeded codec through ``evaluate_proposed_model``, and the backbone's
+   rows; every fp32 row through K1 against the same row with every stack
+   through the plain version (codes and bytes equal, PSNR within 1e-4 dB,
+   ST-SIM within 1e-6), and with r5 the entropy-coded rate within 1% of the
+   JAX package's on the same pairs (4.3093 kbps; the nominal is 4.2).
+   (d) The launches per forward, the latency columns and the phase's wall
+   seconds;
+13. parallel_roll: ``StreamingCodec(parallel_roll=True)`` (the two-pass AR
+   roll) at full width, batch 1, 1 s, default layout, fp32 and bf16: the
+   bytes round trip with its K1 launches (as the scan's: 48 / 56 a call);
+   fp32 against the scan's over the 64 streams (the share of equal codes at
+   least 0.999, bit-equality reported; z_run within 1e-5); bf16 against the
+   scan's fp32 with docs/PARITY.md's gates over the 64 streams; each form's
+   latency by CUDA events, its chained ``device_time_ms`` and its profiled
+   device time, side by side.
 
 Then a JSON line of per-kernel numbers and, last, the device line. An error
 raises at once; a numeric gate that fails is reported when it fails, and the
@@ -109,10 +139,16 @@ import numpy as np
 import torch
 
 from multimodal_vqvae_compression_audio_tactile_tpu_torch import _build
-from multimodal_vqvae_compression_audio_tactile_tpu_torch.convert import load_codec, load_plc
-from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.config import CodecConfig
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.convert import (
+    load_codec, load_dac, load_plc)
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.config import (
+    CodecConfig, EvalConfig)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.precision import fp32_exact
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.data import pair_stems, split_items
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval import dac_baseline, proposed, vcpwq
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval import metrics
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval.prepared import (
+    equal_length_batches, prepare_pairs)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval.serving import (
     StreamingCodec, StreamingConcealer)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.models import allpred_ar, dac
@@ -123,6 +159,8 @@ from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc.eval_categories im
     eval_plc_categories)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc.eval_uniform import eval_plc_uniform
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc.train import plc_config_from_meta
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.scripts.measure_latencies import (
+    measure as measure_latencies)
 
 # Published dense peaks of one H100 SXM at 700 W: fp32 outside the tensor
 # cores, bf16 in them, and HBM3 bandwidth.
@@ -873,6 +911,208 @@ def plc_eval_phase() -> None:
              f"plc_eval {mode}: K1 launches {counts}")
 
 
+NQ = (1, 2, 4, 8)              # the backbone baseline's depths
+# The round-5 codec's entropy-coded rate on the 3 held-out pairs, the same in
+# both packages on the CPU (tests/test_torch_eval_codecs.py::
+# test_r5_proposed_row_matches_jax): above the nominal 4.2 kbps, since the
+# adaptive range coder pays its learning on 600 codes a file of synthetic
+# signals the model was not trained on.
+R5_KBPS_CODED = 4.309333333333333
+
+
+def held_out_pairs() -> tuple:
+    """The evidence corpus's 3 held-out pairs and their tactile peak."""
+    _, pairs = split_items(pair_stems(os.path.join(EVIDENCE, "corpus", "audio"),
+                                      os.path.join(EVIDENCE, "corpus", "tactile")), 0.2, 300, 7)
+    return pairs, metrics.compute_global_peak([t for _, t, _ in pairs])
+
+
+def evaluate(bb, cfg: CodecConfig, pairs, peak: float, lat: dict, sweep=None, codec=None) -> dict:
+    """The backbone's rows at ``NQ`` and the proposed rows (every run under
+    ``sweep``, or ``codec`` alone) in fp32 on the card, from the latency map
+    ``lat``, each with its K1 launches."""
+    ecfg, quiet = EvalConfig(), lambda *_: None
+    dac24, n_dac, _ = counted(lambda: dac_baseline.eval_backbone_codec(
+        bb, cfg.dac, pairs, peak, ecfg, n_q_list=NQ, latency_map=lat["backbone"], log=quiet))
+    if sweep is not None:
+        prop, n_prop, _ = counted(lambda: proposed.eval_proposed_runs(
+            sweep, cfg, {"audio": bb, "tactile": bb}, pairs, peak, ecfg,
+            latency_map=lat["runs"], log=quiet))
+    else:
+        prop, n_prop, _ = counted(lambda: [proposed.evaluate_proposed_model(
+            codec, pairs, peak, ecfg=ecfg, latency=lat["runs"]["seeded"])])
+    return {"dac24": dac24, "proposed": prop, "launches_dac24": n_dac["resunit_stack"],
+            "launches_proposed": n_prop["resunit_stack"]}
+
+
+def gate_launches(name: str, res: dict, n_runs: int) -> dict:
+    """K1 launches of the rows: one forward of the batch of 3 per row (8
+    stacks a backbone forward, and 4 for the token-rate probe; 12 a
+    proposed one), 6 a stack in fp32. -> launches per forward."""
+    per = resunit.stack_launches(3, torch.float32)
+    want = {"dac24": (len(NQ) * 8 + 4) * per, "proposed": n_runs * 12 * per}
+    got = {"dac24": res["launches_dac24"], "proposed": res["launches_proposed"]}
+    gate(got == want, f"codec_eval {name}: K1 launches {got}, expected {want}")
+    return {"backbone_forward": (got["dac24"] - 4 * per) // len(NQ),
+            "proposed_forward": got["proposed"] // max(n_runs, 1)}
+
+
+def against_manifest(name: str, rows: list, want: list, tol: dict) -> dict:
+    """Worst deviation of ``rows`` from the MANIFEST's ``want``, gated on its
+    tolerances."""
+    worst = {"kbps": 0.0, "psnr_db": 0.0, "stsim": 0.0}
+    gate(len(rows) == len(want), f"codec_eval {name}: {len(rows)} rows, expected {len(want)}")
+    for g, w in zip(rows, want):
+        for key, field in (("kbps", "kbps"), ("psnr_db", "psnr_mean"), ("stsim", "stsim_mean")):
+            worst[key] = max(worst[key], abs(g[field] - w[field]))
+    gate(all(worst[k] <= tol[k] for k in worst), f"codec_eval {name} off MANIFEST.json: {worst}")
+    return worst
+
+
+def latency_columns(lat: dict) -> dict:
+    return {group: {k: {c: v[c] for c in ("enc_p50_ms", "enc_p95_ms", "dec_p50_ms", "dec_p95_ms")}
+                    for k, v in lat[group].items()} for group in ("backbone", "runs")}
+
+
+@torch.no_grad()
+def codec_eval_phase(m: allpred_ar.CodecModules, weights: str) -> None:
+    """The codec evaluators on the card; see the module docstring (phase 12)."""
+    t_phase = time.perf_counter()
+    ecfg = EvalConfig()
+    pairs, peak = held_out_pairs()
+    with open(os.path.join(EVIDENCE, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    tol, want = manifest["tolerances"], manifest["smoke_numbers"]
+
+    # (a) the trained tiny codec against the MANIFEST
+    t0 = time.perf_counter()
+    tcfg, sweep = CodecConfig().tiny(), os.path.join(EVIDENCE, "sweep")
+    tbb = load_dac(os.path.join(EVIDENCE, "backbone", "best.msgpack"), tcfg.dac).cuda()
+    lat_tiny = measure_latencies(tbb, tcfg, sweep, NQ, ecfg)
+    lat_tiny_s = time.perf_counter() - t0
+    tiny = evaluate(tbb, tcfg, pairs, peak, lat_tiny, sweep=sweep)
+    per_fwd_tiny = gate_launches("tiny", tiny, 2)
+    worst = {"dac_baseline": against_manifest("tiny dac_baseline", [
+                 tiny["dac24"][int(w["n_q"])] for w in want["dac_baseline"]],
+                 want["dac_baseline"], tol),
+             "proposed": against_manifest("tiny proposed", tiny["proposed"], want["proposed"],
+                                          tol)}
+    with open(os.path.join(EVIDENCE, "sweep", "eval_vs_backbone",
+                           "eval_all_vs_backbone_rawPSNR_latency.json")) as f:
+        committed = [r["kbps_entropy_coded"] for r in json.load(f)["proposed_runs"]]
+    coded = [r["kbps_entropy_coded"] for r in tiny["proposed"]]
+    gate(len(coded) == len(committed)
+         and all(abs(g - c) <= tol["kbps"] for g, c in zip(coded, committed)),
+         f"codec_eval tiny kbps_entropy_coded {coded}, committed {committed}")
+    say("codec_eval_tiny", rows_wall_s=time.perf_counter() - t0 - lat_tiny_s,
+        latency_wall_s=lat_tiny_s, launches_per_forward=per_fwd_tiny,
+        max_deviation_from_manifest=worst, tolerances=tol, kbps_entropy_coded=coded,
+        committed_kbps_entropy_coded=committed, latency_ms=latency_columns(lat_tiny),
+        chained_time=lat_tiny.get("device_time"))
+
+    # (b) VC-PWQ, built from source
+    t0 = time.perf_counter()
+    out = os.path.join(REPO, "build", "chip_smoke_codec_eval")
+    shutil.rmtree(out, ignore_errors=True)
+    exe = vcpwq.build_codec()
+    build_s = time.perf_counter() - t0
+    tact = os.path.join(EVIDENCE, "corpus", "tactile")
+    vcpwq.code_corpus(tact, os.path.join(out, "dec"), os.path.join(out, "comp"),
+                      ecfg.vc_b_list, codec=exe)
+    vc = vcpwq.eval_vc_pwq(os.path.join(out, "dec"), os.path.join(out, "comp"), tact, peak,
+                           ecfg, log=lambda *_: None)
+    worst_vc = against_manifest("vc_pwq", vc, want["vc_pwq"], tol)
+    gate(all(r["stream_version"] == "v2" and r["n"] == 16 for r in vc),
+         f"codec_eval vc_pwq streams or files: {[(r['stream_version'], r['n']) for r in vc]}")
+    say("codec_eval_vc_pwq", codec=os.path.relpath(exe, REPO), build_s=build_s,
+        wall_s=time.perf_counter() - t0, budgets=[r["b"] for r in vc],
+        kbps=[r["kbps"] for r in vc], max_deviation_from_manifest=worst_vc)
+
+    # (c) full width: kernels against the plain stacks
+    t0 = time.perf_counter()
+    cfg = m.cfg
+    if all(map(os.path.exists, R5)):
+        sweep, codec = os.path.dirname(os.path.dirname(R5[1])), None
+        lat = measure_latencies(m.tactile_dac, CodecConfig(), sweep, NQ, ecfg)
+    else:
+        sweep, codec = None, m
+        lat = measure_latencies(m.tactile_dac, cfg, None, NQ, ecfg)
+        lat["runs"]["seeded"] = proposed.measure_latency(m, cfg.rvq.n_books, ecfg)
+    lat_s = time.perf_counter() - t0
+    full = evaluate(m.tactile_dac, cfg, pairs, peak, lat, sweep=sweep, codec=codec)
+    per_fwd = gate_launches("full width", full, 1)
+    with plain_stacks():
+        plain = evaluate(m.tactile_dac, cfg, pairs, peak, lat, sweep=sweep, codec=codec)
+    gate(plain["launches_dac24"] == plain["launches_proposed"] == 0,
+         "codec_eval: the plain-stack rows launched a kernel")
+    _, A, T = next(equal_length_batches(prepare_pairs(pairs, cfg.dac.sample_rate), 16))
+    A, T = torch.from_numpy(A).cuda(), torch.from_numpy(T).cuda()
+    codes = {}
+    for path, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_stacks)):
+        with ctx():
+            codes[path] = (allpred_ar.encode_latents(m, A, T)[1],
+                           dac.encode_quantized(m.tactile_dac, cfg.dac, T)[1])
+    codes_equal = [bool(torch.equal(k, p)) for k, p in zip(codes["kernels"], codes["plain"])]
+    rows_k = list(full["dac24"].values()) + full["proposed"]
+    rows_p = list(plain["dac24"].values()) + plain["proposed"]
+    d_psnr = max(abs(k["psnr_mean"] - p["psnr_mean"]) for k, p in zip(rows_k, rows_p))
+    d_stsim = max(abs(k["stsim_mean"] - p["stsim_mean"]) for k, p in zip(rows_k, rows_p))
+    same_bytes = all(k["kbps_entropy_coded"] == p["kbps_entropy_coded"]
+                     for k, p in zip(full["proposed"], plain["proposed"]))
+    gate(all(codes_equal) and same_bytes and d_psnr <= 1e-4 and d_stsim <= 1e-6,
+         f"codec_eval full width, K1 against plain stacks: codes equal {codes_equal}, bytes "
+         f"equal {same_bytes}, |dPSNR| {d_psnr:.3e} dB, |dST-SIM| {d_stsim:.3e}")
+    coded = [r["kbps_entropy_coded"] for r in full["proposed"]]
+    if sweep is not None:
+        gate(len(coded) == 1 and abs(coded[0] / R5_KBPS_CODED - 1.0) <= 1e-2,
+             f"codec_eval r5: entropy-coded {coded} kbps, the JAX package's {R5_KBPS_CODED}")
+    say("codec_eval_full_width", weights=weights,
+        runs=[r.get("run", "seeded") for r in full["proposed"]],
+        rows_wall_s=time.perf_counter() - t0 - lat_s, latency_wall_s=lat_s,
+        launches_per_forward=per_fwd, codes_equal_plain=codes_equal,
+        bytes_equal_plain=same_bytes, max_abs_dpsnr_db=d_psnr, max_abs_dstsim=d_stsim,
+        kbps_entropy_coded=coded, nominal_kbps=cfg.kbps(),
+        psnr_mean={**{f"n_q{q}": r["psnr_mean"] for q, r in full["dac24"].items()},
+                   **{r.get("run", "seeded"): r["psnr_mean"] for r in full["proposed"]}},
+        latency_ms=latency_columns(lat), chained_time=lat.get("device_time"))
+    say("codec_eval", wall_s=time.perf_counter() - t_phase,
+        k1_launches_per_fp32_forward={"tiny": per_fwd_tiny, "full_width": per_fwd})
+
+
+def parallel_roll_phase(m: allpred_ar.CodecModules, a, tc, many: tuple, default: dict) -> None:
+    """``StreamingCodec(parallel_roll=True)``; see the module docstring
+    (phase 13)."""
+    flags = {"parallel_roll": True}
+    res = {name: serve(m, f"parallel_roll_{name}", fast, a, tc, expect(fast, k1=8), flags)
+           for name, fast in (("fp32", False), ("bf16", True))}
+    f32 = latents(m, False, flags, many)
+    ref = default["fp32_many"]
+    agree = float((f32["codes"] == ref["codes"]).mean())
+    z_err = rel_err(f32["z_run"], ref["z_run"])
+    say("parallel_roll_vs_scan_fp32", streams=len(f32["codes"]), code_agreement=agree,
+        codes_bit_equal=bool((f32["codes"] == ref["codes"]).all()),
+        z_run_rel_err=z_err, z_run_bit_equal=bool(torch.equal(f32["z_run"], ref["z_run"])),
+        batch1_codes_equal=bool((res["fp32"]["codes"] == default["fp32"]["codes"]).all()))
+    gate(agree >= 0.999, f"parallel roll fp32 code agreement with the scan {agree:.5f} < 0.999")
+    gate(z_err <= 1e-5, f"parallel roll fp32 z_run differs from the scan's by {z_err:.3e}")
+    parity("parallel_roll", ref, latents(m, True, flags, many))
+    for dt, scan, par in (("float32", default["fp32"], res["fp32"]),
+                          ("bfloat16", default["bf16"], res["bf16"])):
+        forms = {}
+        for form, r in (("scan", scan), ("parallel", par)):
+            sc = r["codec"]
+            dtm = sc.device_time_ms(n_lo=4, n_hi=16, reps=2)
+            prof = profile_calls(f"{form}_roll_{dt}", {"encode": lambda: sc.encode(a, tc)})
+            forms[form] = {"encode_events_ms": cuda_ms(lambda: sc.encode(a, tc), reps=5),
+                           "decode_z_run_events_ms": cuda_ms(lambda: sc.decode(r["z_run"]),
+                                                             reps=5),
+                           "encode_chained_ms": dtm["encode_ms_per_batch"],
+                           "decode_z_run_chained_ms": dtm["decode_ms_per_batch"],
+                           "encode_chained_spread_ms": dtm["encode"]["slope_spread_ms"],
+                           "encode_profiled_device_ms": prof["encode"]["device_ms"]}
+        say("parallel_roll_latency", dtype=dt, **forms)
+
+
 def ptxas_summary(log: str) -> dict:
     """Each kernel's registers, stack, spill bytes and static shared memory,
     as ``nvcc -Xptxas -v`` printed them, by demangled-ish name."""
@@ -984,6 +1224,8 @@ def main() -> int:
     small_reference(args.seed)
     conceal_phase(m, args.seed, weights)
     plc_eval_phase()
+    codec_eval_phase(m, weights)
+    parallel_roll_phase(m, a, tc, many, default)
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} gate(s) failed", file=sys.stderr)
         return 1

@@ -171,13 +171,36 @@ def params_from_jax(tree: Any, cfg: CodecConfig) -> CodecModules:
     return m
 
 
+def load_dac(path: str, cfg: DacConfig) -> DAC:
+    """A backbone from its checkpoint, checked strictly against ``cfg``, on
+    the CPU."""
+    tree, _, _ = load_checkpoint(path, dac_template(cfg))
+    m = DAC(cfg)
+    _load(dac_leaves(m), tree)
+    return m
+
+
+def codec_from_backbones(audio_dac: DAC, tactile_dac: DAC, head_path: str,
+                         cfg: CodecConfig) -> CodecModules:
+    """Codec on already-loaded backbone modules (used as they are, not
+    copied) and a head checkpoint, checked strictly against ``cfg``; the head
+    goes where the audio backbone lives. An evaluation of many sweep runs
+    reads the backbone once this way."""
+    head_tree, _, _ = load_checkpoint(head_path, head_template(cfg))
+    with torch.device("meta"):
+        m = CodecModules(cfg)
+    m.audio_dac, m.tactile_dac, m.head = audio_dac, tactile_dac, Head(cfg)
+    _load(head_leaves(m.head), head_tree)
+    m.head.to(next(audio_dac.parameters()).device)
+    return m
+
+
 def load_codec(backbone_path: str, head_path: str, cfg: CodecConfig) -> CodecModules:
-    """Codec from a backbone checkpoint (serving as both the audio and the
-    tactile backbone, as the JAX evaluation scripts load it) and a head
-    checkpoint. Both are checked strictly against ``cfg``."""
-    bb, _, _ = load_checkpoint(backbone_path, dac_template(cfg.dac))
-    head, _, _ = load_checkpoint(head_path, head_template(cfg))
-    return params_from_jax({"audio_dac": bb, "tactile_dac": bb, "head": head}, cfg)
+    """Codec from a backbone checkpoint (one module serving as both the audio
+    and the tactile backbone, as the JAX evaluation scripts load it) and a
+    head checkpoint. Both are checked strictly against ``cfg``."""
+    bb = load_dac(backbone_path, cfg.dac)
+    return codec_from_backbones(bb, bb, head_path, cfg)
 
 
 def plc_params_from_jax(tree: Any, cfg: CodecConfig, n_layers: int = 1) -> PLCModules:

@@ -156,3 +156,8 @@ def peek(data: bytes) -> tuple[int, int, int]:
     n_books = int(np.frombuffer(data[8:10], np.uint16)[0])
     n_bits = int(np.frombuffer(data[10:12], np.uint16)[0])
     return T, n_books, 1 << n_bits
+
+
+def empirical_kbps(n_bytes: int, seconds: float) -> float:
+    """The wire rate of ``n_bytes`` over ``seconds`` of signal, in kbps."""
+    return n_bytes * 8.0 / seconds / 1000.0

@@ -30,8 +30,15 @@ on the card is to set this policy. ``StreamingConcealer`` takes
 ``time_major`` and ``poly_upsample`` with the same policy, and, as in the
 JAX package, ``tail_kernel`` and ``time_major_enc`` from its modules' config.
 
+``parallel_roll`` runs the codec's AR roll as the two-pass parallel roll
+(``models/ar_parallel.py``) in ``encode``, ``decode_from_codes`` and
+``device_time_ms``; ``None`` means off, as in the JAX package, which
+measured the scan faster on its TPU.
+
 ``throughput_frames_per_sec`` times the calls by CUDA events on the card
-and by the host clock on the CPU, which computes synchronously.
+and by the host clock on the CPU, which computes synchronously;
+``device_time_ms`` times chains of calls the same way
+(``eval/latency.py::measure_device_ms``).
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ import torch
 
 from ..core.config import CodecConfig
 from ..core.precision import fp32_exact
-from ..models import allpred_ar
+from ..models import allpred_ar, ar_parallel
 from ..plc import model as plc_model
 from . import bitstream
 
@@ -88,9 +95,17 @@ class StreamingCodec:
                  poly_upsample: Optional[bool] = None,
                  time_major: Optional[bool] = None,
                  tail_kernel: Optional[bool] = None,
-                 time_major_enc: Optional[bool] = None):
+                 time_major_enc: Optional[bool] = None,
+                 parallel_roll: Optional[bool] = None):
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"StreamingCodec: unsupported compute_dtype {compute_dtype}")
+        self.parallel_roll = bool(parallel_roll)
+        if self.parallel_roll:
+            self._encode = ar_parallel.encode_latents_parallel
+            self._decode_codes = ar_parallel.decode_from_codes_parallel
+        else:
+            self._encode = allpred_ar.encode_latents
+            self._decode_codes = allpred_ar.decode_from_codes
         self.device = resolve_device(device)
         cfg: CodecConfig = modules.cfg
         cfg = cfg.fast_serving() if fast else cfg
@@ -116,8 +131,8 @@ class StreamingCodec:
     def encode(self, a, tc):
         """audio, tactile [batch, 1, frame] -> (z_run [batch, C, T_lat] in the
         compute dtype, codes [batch, T_lat, n_books_use] int32)."""
-        return allpred_ar.encode_latents(self.modules, self._put(a), self._put(tc),
-                                         n_books_use=self.n_books_use, cfg=self.cfg)
+        return self._encode(self.modules, self._put(a), self._put(tc),
+                            n_books_use=self.n_books_use, cfg=self.cfg)
 
     @torch.no_grad()
     def decode(self, z_run: torch.Tensor) -> torch.Tensor:
@@ -130,8 +145,7 @@ class StreamingCodec:
         """Receiver: audio [batch, 1, frame] + codes [batch, T_lat, n] ->
         tactile waveform [batch, 1, frame] (fp32)."""
         codes = torch.as_tensor(codes, dtype=torch.int32, device=self.device)
-        return allpred_ar.decode_from_codes(self.modules, self._put(a), codes,
-                                            cfg=self.cfg).float()
+        return self._decode_codes(self.modules, self._put(a), codes, cfg=self.cfg).float()
 
     def encode_to_bytes(self, a, tc) -> List[bytes]:
         """Transmitter: waveforms -> one 'RVQ1' byte stream per batch element."""
@@ -155,6 +169,43 @@ class StreamingCodec:
                 "encode_frames_per_sec": self.batch / (enc / 1e3),
                 "decode_frames_per_sec": self.batch / (dec / 1e3),
                 "encode_ms_per_batch": enc, "decode_ms_per_batch": dec}
+
+    def device_time_ms(self, n_lo: int = 4, n_hi: int = 16, reps: int = 3) -> dict:
+        """Time of one encode and of one ``decode(z_run)`` (the tactile
+        decoder alone) in a chain of calls, by the slope between chains of
+        ``n_lo`` and ``n_hi`` (``eval/latency.py::measure_device_ms``): each
+        call's input is a fixed signal plus a tiny tanh-squashed scalar of
+        the last output. Returns {"encode": {...}, "decode": {...},
+        "encode_frames_per_sec", "decode_frames_per_sec",
+        "encode_ms_per_batch", "decode_ms_per_batch"}."""
+        from . import latency
+
+        rng = np.random.default_rng(3)
+        a0, t0 = (self._put((0.1 * rng.standard_normal((self.batch, 1, self.frame))
+                             ).astype(np.float32)) for _ in range(2))
+
+        def encode(a, tc):
+            return self._encode(self.modules, a, tc, n_books_use=self.n_books_use,
+                                cfg=self.cfg)[0]
+
+        def enc_step(a, tc):
+            d = 1e-6 * torch.tanh(encode(a, tc).float().mean())
+            return (tc + d).to(a.dtype)
+
+        def dec_step(z, zb):
+            d = 1e-6 * torch.tanh(self.decode(z).mean())
+            return (zb + d).to(z.dtype)
+
+        z0 = encode(a0, t0)
+        out = {"encode": latency.measure_device_ms(enc_step, a0, n_lo, n_hi, reps,
+                                                   const_args=(t0,), device=self.device),
+               "decode": latency.measure_device_ms(dec_step, z0, n_lo, n_hi, reps,
+                                                   const_args=(z0,), device=self.device)}
+        for k in ("encode", "decode"):
+            ms = out[k]["ms_per_call"]
+            out[f"{k}_frames_per_sec"] = self.batch / (ms / 1e3) if ms > 0 else float("nan")
+            out[f"{k}_ms_per_batch"] = ms
+        return out
 
 
 class StreamingConcealer:

@@ -19,6 +19,11 @@ With ``tail_kernel`` every narrow stack (C < 256) goes through
 ``ops.resunit_tm.resunit_stack_tm`` (the CUDA kernel K3 on the card) in
 either layout, between transposes in the channels-first one. A block's
 trailing snake runs fused into its stack.
+
+``encode``, ``decode`` and ``encode_quantized`` are the JAX package's
+functional entry points over one backbone (its ``dac.encode``,
+``dac.decode`` and ``dac.encode_quantized``): they compute in the input's
+dtype, in true fp32 (no TF32) when that is fp32.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import DacConfig
+from ..core.precision import fp32_exact
 from ..ops import timeconv as tc
 from ..ops.resunit import DILATIONS, ResUnit, Snake, resunit_stack
 from ..ops.resunit_tm import resunit_stack_tm
@@ -304,3 +310,29 @@ def init_dac_(m: DAC, gen: torch.Generator) -> DAC:
     q.out_bias.zero_()
     q.codebooks.normal_(generator=gen)
     return m
+
+
+@torch.no_grad()
+def encode(m: DAC, cfg: DacConfig, x: torch.Tensor) -> torch.Tensor:
+    """x [B, 1, T] -> continuous latent z [B, latent_dim, T / hop], in x's dtype."""
+    with fp32_exact(x.dtype == torch.float32):
+        return m.encoder(x, cfg)
+
+
+@torch.no_grad()
+def decode(m: DAC, cfg: DacConfig, z: torch.Tensor) -> torch.Tensor:
+    """z [B, latent_dim, T] -> waveform [B, 1, T * hop], in z's dtype."""
+    with fp32_exact(z.dtype == torch.float32):
+        return m.decoder(z, cfg)
+
+
+@torch.no_grad()
+def encode_quantized(m: DAC, cfg: DacConfig, x: torch.Tensor,
+                     n_quantizers: Optional[int] = None,
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, 1, T] -> (z_q [B, latent_dim, T / hop] in x's dtype, codes
+    [B, T / hop, n_use] int32) through the first ``n_quantizers`` books (all
+    when None). The JAX function also returns the training losses, which
+    the serving half leaves out."""
+    with fp32_exact(x.dtype == torch.float32):
+        return m.quantizer.quantize(m.encoder(x, cfg), n_quantizers)

@@ -86,6 +86,12 @@ scn = StreamingConcealer(plc, batch=1, frame_sec=0.2, mask_embed=True, device="c
 mk = masks.make_token_loss_mask(rng, 1, 15, 2, 0.5)
 yc = scn.conceal(a, np.zeros((1, 64, 15), np.float32), mk)
 assert yc.shape == (1, 1, 4800) and bool(torch.isfinite(yc).all())
+import {PORT}.eval.proposed, {PORT}.eval.dac_baseline, {PORT}.eval.vcpwq
+import {PORT}.scripts.eval_codecs, {PORT}.scripts.demo_eval_only
+import {PORT}.scripts.measure_latencies
+scp = StreamingCodec(m, batch=1, frame_sec=0.2, fast=False, compute_dtype=torch.float32,
+                     device="cpu", parallel_roll=True)
+assert scp.encode_to_bytes(a, t) == streams
 assert not any(n.split(".")[0] in BLOCK for n in sys.modules)
 print("ISOLATED_OK", len(streams[0]))
 """
