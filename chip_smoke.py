@@ -111,7 +111,30 @@ random ones made from ``--seed``. Phases, one line of numbers each:
    least 0.999, bit-equality reported; z_run within 1e-5); bf16 against the
    scan's fp32 with docs/PARITY.md's gates over the 64 streams; each form's
    latency by CUDA events, its chained ``device_time_ms`` and its profiled
-   device time, side by side.
+   device time, side by side;
+14. train: the codec head's training entry point ``train/loop.py::train_codec``
+   at full width (``CodecConfig`` with 10 books of 128 codes, the JAX
+   script's default ``rvqB10_K128``, ``TrainConfig`` defaults: batch 6, 1 s
+   segments at 24 kHz, lr 2e-4, clip 3.0) on a synthetic corpus of 24
+   two-second pairs written by the port's ``data/synth.py`` under
+   ``build/chip_smoke_train/``, the backbone of ``artifacts/r5`` where the
+   checkout has it, else random from the seed (written there as a
+   checkpoint for the hand-off), for 2 epochs with ``ema_warm_epochs`` 1 and
+   ``best_after_epoch`` 0. Gates: the step functions launch K1 48 times a
+   train step and 48 an eval step (the two frozen encoders' 8 fp32 stacks;
+   the decoder runs its plain stacks with autograd), K3 and K2 never; after
+   one step every AdamW leaf of the head has a finite gradient that is not
+   all zero; one train step with the encoders through K1 against the same
+   step with every stack through the plain versions, which launches no
+   kernel (loss within 1e-6 relative, every head gradient within 1e-4 of
+   its leaf's largest); the run's books unchanged in epoch 1 and changed in
+   epoch 2 (the EMA);
+   ``last.msgpack`` and ``best.msgpack`` read back strictly equal to the
+   live head at their epochs, ``hist.json`` with the JAX package's keys; the
+   trained head through ``convert.load_codec`` and a ``StreamingCodec`` bytes
+   round trip. Reported: train-step and eval-step ms by CUDA events, data
+   wait per step, steps/s, K1's share of a train step's device time
+   (torch.profiler), ``torch.cuda.max_memory_allocated``.
 
 Then a JSON line of per-kernel numbers and, last, the device line. An error
 raises at once; a numeric gate that fails is reported when it fails, and the
@@ -140,11 +163,13 @@ import torch
 
 from multimodal_vqvae_compression_audio_tactile_tpu_torch import _build
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.convert import (
-    load_codec, load_dac, load_plc)
+    dac_tree, head_template, head_tree, load_codec, load_dac, load_plc)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.config import (
-    CodecConfig, EvalConfig)
+    CodecConfig, EvalConfig, RVQConfig, TrainConfig)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.precision import fp32_exact
-from multimodal_vqvae_compression_audio_tactile_tpu_torch.data import pair_stems, split_items
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.data import (
+    SegmentDataset, batch_iterator, pair_stems, split_items)
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.data.synth import make_synth_corpus
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval import dac_baseline, proposed, vcpwq
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval import metrics
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval.prepared import (
@@ -161,6 +186,8 @@ from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc.eval_uniform impor
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc.train import plc_config_from_meta
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.scripts.measure_latencies import (
     measure as measure_latencies)
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import checkpoint
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import loop as train_loop
 
 # Published dense peaks of one H100 SXM at 700 W: fp32 outside the tensor
 # cores, bf16 in them, and HBM3 bandwidth.
@@ -1113,6 +1140,176 @@ def parallel_roll_phase(m: allpred_ar.CodecModules, a, tc, many: tuple, default:
         say("parallel_roll_latency", dtype=dt, **forms)
 
 
+TRAIN_DIR = os.path.join(REPO, "build", "chip_smoke_train")
+HIST_KEYS = {"train", "val", "l1", "stft", "mel", "ema", "vq_bits", "vq_bits_min", "vq_used"}
+
+
+def train_backbone(cfg: CodecConfig, seed: int) -> tuple:
+    """(backbone module, its checkpoint, what it is): r5's trained backbone,
+    or a random one from the seed written as a checkpoint for the hand-off."""
+    if os.path.exists(R5[0]):
+        return load_dac(R5[0], cfg.dac), R5[0], "artifacts/r5 backbone (trained)"
+    bb = dac.init_dac_(dac.DAC(cfg.dac), torch.Generator().manual_seed(seed))
+    path = os.path.join(TRAIN_DIR, "backbone.msgpack")
+    checkpoint.save_checkpoint(path, dac_tree(bb), 0)
+    return bb, path, f"random, seed {seed}"
+
+
+def leaf_grad_errs(got: dict, ref: dict) -> dict:
+    return {n: float((got[n] - ref[n]).abs().max() / ref[n].abs().max().clamp_min(1e-30))
+            for n in ref}
+
+
+def train_probes(cfg, tcfg, bb, batch_np, seed: int) -> dict:
+    """The step functions on one batch: launches, gradients, K1 against the
+    plain stacks, times, profile, memory."""
+    a, tc = (torch.from_numpy(x).cuda() for x in batch_np)
+    train_step, eval_step = train_loop.make_step_fns(cfg, tcfg)
+
+    def fresh():
+        head = allpred_ar.head_init(cfg, torch.Generator().manual_seed(seed)).cuda()
+        m = allpred_ar.codec_of(bb, bb, head, cfg)
+        return train_loop.TrainState(m, train_loop.AdamW(train_loop.adamw_params(head), tcfg,
+                                                         3))
+
+    def grads(state):
+        return {n: p.grad.detach().clone() for n, p in state.head.named_parameters()
+                if n != "vq_books"}
+
+    out = {}
+    with fp32_exact():
+        torch.cuda.reset_peak_memory_stats()
+        state = fresh()
+        metrics, n_train, _ = counted(lambda: train_step(state, a, tc, seed + 1, do_ema=True))
+        g = grads(state)
+        bad = [n for n, t in g.items() if not bool(torch.isfinite(t).all())
+               or not bool(t.abs().sum() > 0)]
+        gate(not bad and len(g) == len(train_loop.adamw_params(state.head)),
+             f"train: head gradients not finite or all zero after one step: {bad}")
+        _, n_eval, _ = counted(lambda: eval_step(state.m, a, tc))
+        want = expect(False, k1=8)
+        gate(n_train == want and n_eval == want,
+             f"train: launches a train step {n_train} / an eval step {n_eval}, expected {want}")
+
+        ref_state = fresh()
+        with plain_stacks():
+            ref_metrics, n_plain, _ = counted(
+                lambda: train_step(ref_state, a, tc, seed + 1, do_ema=True))
+        gate(not any(n_plain.values()), f"train: plain step launched a kernel: {n_plain}")
+        loss_rel = abs(float(metrics[0]) - float(ref_metrics[0])) / abs(float(ref_metrics[0]))
+        errs = leaf_grad_errs(g, grads(ref_state))
+        gate(loss_rel <= 1e-6 and max(errs.values()) <= 1e-4,
+             f"train: K1 step against the plain stacks: loss {loss_rel:.3e}, "
+             f"grads {max(errs.values()):.3e}")
+        out.update(launches_train_step=n_train, launches_eval_step=n_eval,
+                   launches_plain_step=n_plain, loss=float(metrics[0]),
+                   loss_rel_err_k1_vs_plain=loss_rel,
+                   max_grad_rel_err_k1_vs_plain=max(errs.values()),
+                   grads_bit_equal_k1_vs_plain=all(v == 0.0 for v in errs.values()))
+        out["train_step_ms"] = cuda_ms(lambda: train_step(state, a, tc, seed + 1, True),
+                                       reps=5, warm=1)
+        out["eval_step_ms"] = cuda_ms(lambda: eval_step(state.m, a, tc), reps=5, warm=1)
+        prof = profile_calls("train", {
+            "train_step": lambda: train_step(state, a, tc, seed + 1, True),
+            "eval_step": lambda: eval_step(state.m, a, tc)})
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    for call, p in prof.items():
+        k1 = p["by_kind"].get("K1 resunit_stack", {"ms": 0.0})["ms"]
+        out[f"{call}_device_ms"] = p["device_ms"]
+        out[f"{call}_k1_share"] = k1 / p["device_ms"] if p["device_ms"] else None
+        out[f"{call}_busy_share"] = p["busy_share"]
+    return out
+
+
+def train_phase(seed: int, a, tc) -> None:
+    """The codec head's training on the card; see the module docstring
+    (phase 14)."""
+    t_phase = time.perf_counter()
+    cfg = CodecConfig(rvq=RVQConfig(n_books=10, n_embed=128, ema_warm_epochs=1))
+    tcfg = TrainConfig(epochs=2, best_after_epoch=0)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    pairs = make_synth_corpus(os.path.join(TRAIN_DIR, "corpus"), n_pairs=24, dur_sec=2.0,
+                              seed=seed)
+    tr, va = split_items(pairs, tcfg.val_frac, tcfg.max_val, tcfg.seed)
+    ds_tr = SegmentDataset(tr, sr=tcfg.target_sr, seg=tcfg.seg, seed=tcfg.seed)
+    ds_va = SegmentDataset(va, sr=tcfg.target_sr, seg=tcfg.seg, seed=tcfg.seed)
+    bb, bb_path, weights = train_backbone(cfg, seed)
+    bb = bb.cuda().requires_grad_(False)
+    probes = train_probes(cfg, tcfg, bb, next(batch_iterator(ds_tr, tcfg.batch, seed=seed)),
+                          seed)
+
+    waits: list = []
+
+    def timed(batches):
+        it = iter(batches)
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            if b is None:
+                return
+            waits.append(time.perf_counter() - t0)
+            yield b
+
+    books0 = allpred_ar.head_init(cfg, torch.Generator().manual_seed(seed)).vq_books.detach()
+    seen: dict = {}
+
+    def on_epoch(ep, head):           # the live head at each epoch's end
+        seen[ep] = (checkpoint.snapshot(head_tree(head)), time.perf_counter() - t0)
+
+    out_dir = os.path.join(TRAIN_DIR, "run")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist, n_run, _ = counted(lambda: train_loop.train_codec(
+        cfg, tcfg, {"audio": bb, "tactile": bb},
+        train_batches=lambda ep: timed(batch_iterator(ds_tr, tcfg.batch, seed=tcfg.seed,
+                                                      epoch=ep)),
+        val_batches=lambda: batch_iterator(ds_va, tcfg.batch, shuffle=False, drop_last=False),
+        out_dir=out_dir, seed=seed, log=lambda s: print(f"[train] {s}", flush=True),
+        on_epoch=on_epoch))
+    run_s = time.perf_counter() - t0
+    steps = len(ds_tr) // tcfg.batch
+    n_waits = waits[steps:]                  # the counting pass over epoch 0 left out
+    gate(len(n_waits) == tcfg.epochs * steps, f"train: {len(n_waits)} batches drawn")
+
+    trees = {ep: v[0] for ep, v in seen.items()}
+    b1, b2 = trees[1]["vq_books"].cpu(), trees[2]["vq_books"].cpu()
+    ema_ok = torch.equal(b1, books0) and not torch.equal(b2, b1)
+    gate(ema_ok and hist["ema"] == [0.0, 1.0],
+         f"train: the books should move in epoch 2 only (ema {hist['ema']})")
+    files = {}
+    for name in ("last", "best"):
+        tree, epoch, fhist = checkpoint.load_checkpoint(os.path.join(out_dir, f"{name}.msgpack"),
+                                                        head_template(cfg))
+        live = checkpoint.to_host(trees[epoch])
+        same = all(np.array_equal(tree_at(tree, p), tree_at(live, p))
+                   for p, _ in checkpoint.flatten(live))
+        files[name] = {"epoch": epoch, "equal_live_head": same}
+        gate(same and set(fhist) == HIST_KEYS, f"train: {name}.msgpack (epoch {epoch}) "
+             f"differs from the live head or its hist keys {sorted(fhist)}")
+    with open(os.path.join(out_dir, "hist.json")) as f:
+        gate(set(json.load(f)) == HIST_KEYS, "train: hist.json keys")
+    gate(files["last"]["epoch"] == 2 and all(np.isfinite(hist["train"] + hist["val"])),
+         f"train: hist {hist}")
+
+    # the hand-off: the trained head served through the bytes round trip
+    m = load_codec(bb_path, os.path.join(out_dir, "best.msgpack"), cfg).cuda()
+    serve(m, "trained_head", False, a, tc, expect(False, k1=8), {})
+    say("train", weights=weights, config="rvqB10_K128", batch=tcfg.batch, seg=tcfg.seg,
+        epochs=tcfg.epochs, steps_per_epoch=steps, val_pairs=len(ds_va), **probes,
+        run_wall_s=run_s, steps_per_s=tcfg.epochs * steps / run_s,
+        epoch_end_s=[seen[1][1], seen[2][1]],
+        data_wait_ms_per_step=1e3 * float(np.mean(n_waits)),
+        data_wait_ms_max=1e3 * float(np.max(n_waits)), launches_run=n_run,
+        hist={k: hist[k] for k in ("train", "val", "vq_bits", "vq_used")}, files=files,
+        ema_epoch2_only=ema_ok, wall_s=time.perf_counter() - t_phase)
+
+
+def tree_at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return np.asarray(tree)
+
+
 def ptxas_summary(log: str) -> dict:
     """Each kernel's registers, stack, spill bytes and static shared memory,
     as ``nvcc -Xptxas -v`` printed them, by demangled-ish name."""
@@ -1226,6 +1423,7 @@ def main() -> int:
     plc_eval_phase()
     codec_eval_phase(m, weights)
     parallel_roll_phase(m, a, tc, many, default)
+    train_phase(args.seed, a, tc)
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} gate(s) failed", file=sys.stderr)
         return 1

@@ -10,7 +10,11 @@ Layouts that differ between the two packages:
 - the quantizers' stacked tensors (``vq_books [n, K, D]`` and the backbone's
   projections and codebooks) keep their layout.
 
-Every conversion is strict: a missing, extra or mis-shaped leaf raises.
+Every conversion into the port is strict: a missing, extra or mis-shaped
+leaf raises; only a training resume (``load_head_tolerant``) keeps a leaf
+the checkpoint lacks, as the JAX package's resume does. ``head_tree`` and
+``dac_tree`` go the other way, a module to its JAX-layout tree, for the
+checkpoint writer.
 """
 
 from __future__ import annotations
@@ -23,12 +27,12 @@ import torch
 from torch import nn
 
 from .core.config import CodecConfig, DacConfig
-from .models.allpred_ar import CodecModules, Head
+from .models.allpred_ar import CodecModules, Head, codec_of
 from .models.dac import DAC
 from .nn.layers import CrossPredictor
 from .ops.resunit import ResUnit
 from .plc.model import PLCHead, PLCModules
-from .train.checkpoint import Path, check_tree, load_checkpoint
+from .train.checkpoint import Path, check_tree, load_checkpoint, load_checkpoint_tolerant
 
 # How a JAX leaf maps to its tensor: None = same layout, "t01" = swap the
 # first two axes (transposed conv), "t" = matrix transpose (linear).
@@ -127,6 +131,46 @@ def _to_torch(a: np.ndarray, kind: Optional[str]) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=np.float32))     # a copy
 
 
+def _to_jax_layout(t: torch.Tensor, kind: Optional[str]) -> torch.Tensor:
+    """A view of t in the JAX layout (no copy)."""
+    t = t.detach()
+    if kind == "t01":
+        return t.transpose(0, 1)
+    if kind == "t":
+        return t.T
+    return t
+
+
+def _tree(leaves: Iterator[Leaf]) -> dict:
+    """Nested dicts of JAX-layout tensor views, integer path parts as lists
+    and keys in sorted order, as the JAX package's checkpoints hold them."""
+    root: dict = {}
+    for p, t, kind in leaves:
+        node = root
+        for k in p[:-1]:
+            node = node.setdefault(k, {})
+        node[p[-1]] = _to_jax_layout(t, kind)
+
+    def order(node):
+        if not isinstance(node, dict):
+            return node
+        if all(isinstance(k, int) for k in node):
+            return [order(node[i]) for i in range(len(node))]
+        return {k: order(node[k]) for k in sorted(node)}
+    return order(root)
+
+
+def head_tree(h: Head) -> dict:
+    """The codec head as the JAX package's ``head`` tree, of tensor views in
+    JAX layout (``proj_*``/``predict`` linears' ``w`` = ``weight.T``)."""
+    return _tree(head_leaves(h))
+
+
+def dac_tree(m: DAC) -> dict:
+    """A backbone as the JAX package's parameter tree, of tensor views."""
+    return _tree(dac_leaves(m))
+
+
 def _template(leaves: Iterator[Leaf]) -> Dict[Path, Tuple[int, ...]]:
     return {p: _jax_shape(t, kind) for p, t, kind in leaves}
 
@@ -155,6 +199,20 @@ def _load(leaves: Iterator[Leaf], tree: Any) -> None:
     arrays = check_tree(tree, _template(iter(leaves)))
     for p, t, kind in leaves:
         t.copy_(_to_torch(arrays[p], kind))
+
+
+@torch.no_grad()
+def load_head_tolerant(h: Head, path: str) -> Tuple[int, dict]:
+    """Resume: load a head checkpoint into ``h`` leaf by leaf, keeping h's
+    own value for a leaf the file lacks or holds at another shape (a
+    checkpoint from before a head-schema addition, such as ``vq_counts``).
+    -> (epoch, hist)."""
+    leaves = list(head_leaves(h))
+    found, epoch, hist = load_checkpoint_tolerant(path, _template(iter(leaves)))
+    for p, t, kind in leaves:
+        if p in found:
+            t.copy_(_to_torch(found[p], kind))
+    return epoch, hist
 
 
 def _part(tree: Any, name: str) -> Any:
@@ -186,11 +244,9 @@ def codec_from_backbones(audio_dac: DAC, tactile_dac: DAC, head_path: str,
     copied) and a head checkpoint, checked strictly against ``cfg``; the head
     goes where the audio backbone lives. An evaluation of many sweep runs
     reads the backbone once this way."""
-    head_tree, _, _ = load_checkpoint(head_path, head_template(cfg))
-    with torch.device("meta"):
-        m = CodecModules(cfg)
-    m.audio_dac, m.tactile_dac, m.head = audio_dac, tactile_dac, Head(cfg)
-    _load(head_leaves(m.head), head_tree)
+    tree, _, _ = load_checkpoint(head_path, head_template(cfg))
+    m = codec_of(audio_dac, tactile_dac, Head(cfg), cfg)
+    _load(head_leaves(m.head), tree)
     m.head.to(next(audio_dac.parameters()).device)
     return m
 

@@ -1,7 +1,8 @@
 """Typed configuration of the codec (own copy; the port imports no JAX module).
 
 Mirrors ``DacConfig``, ``PredictorConfig``, ``RVQConfig``, ``CodecConfig``,
-``PLCConfig`` and ``EvalConfig`` of the JAX package field for field, minus the fused-stack options
+``LossConfig``, ``TrainConfig``, ``PLCConfig`` and ``EvalConfig`` of the JAX
+package field for field, minus the fused-stack options
 (``fused_resunits``, ``fused_resunits_b1``): the port always runs its
 channels-first stacks through its kernel K1. The layout options keep JAX's
 names and meanings: ``time_major``/``time_major_enc`` run the decoder/encoder
@@ -127,6 +128,51 @@ class CodecConfig:
         """Nominal bitrate: tokens/s * n_books * log2(n_embed) / 1000."""
         tps = self.dac.tokens_per_sec if tokens_per_sec is None else tokens_per_sec
         return tps * self.rvq.n_books * math.log2(self.rvq.n_embed) / 1000.0
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Reconstruction loss weights and STFT/mel settings. The two PLC-only
+    terms are 0 in the codec's loss (the reference's)."""
+
+    w_wav_l1: float = 0.55
+    w_stft: float = 0.25
+    w_melcos: float = 0.20
+    stft_ffts: Tuple[int, ...] = (256, 512, 1024)
+    stft_hops: Tuple[int, ...] = (64, 128, 256)
+    mel_nfft: int = 512
+    mel_hop: int = 128
+    mel_mels: int = 64
+    eps: float = 1e-7
+    w_plc_latent: float = 0.0
+    w_plc_masked: float = 0.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training loop hyperparameters: AdamW at ``lr`` with decoupled weight
+    decay, per-epoch cosine anneal to ``lr_min_frac * lr``, global-norm clip,
+    ``best`` checkpoints only after ``best_after_epoch``."""
+
+    target_sr: int = 24000
+    seg_sec: float = 1.0
+    batch: int = 6
+    epochs: int = 100
+    lr: float = 2e-4
+    weight_decay: float = 1e-5
+    grad_clip: float = 3.0
+    seed: int = 7
+    val_frac: float = 0.2
+    max_val: int = 300
+    lr_min_frac: float = 0.1
+    best_after_epoch: int = 6
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    loss: LossConfig = field(default_factory=LossConfig)
+
+    @property
+    def seg(self) -> int:
+        return int(self.seg_sec * self.target_sr)
 
 
 @dataclass(frozen=True)

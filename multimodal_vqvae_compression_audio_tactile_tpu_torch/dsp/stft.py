@@ -2,7 +2,8 @@
 ``dsp/stft.py`` computes it.
 
 The signal is made finite (NaN and infinities to 0), reflect-padded by
-``n_fft // 2`` on both sides (``center=True``), cut into ``1 + T // hop``
+``n_fft // 2`` on both sides (``center=True``; a signal no longer than the
+pad is reflected again and again, as ``numpy.pad``'s reflect mode does), cut into ``1 + T // hop``
 frames of ``n_fft`` samples, windowed by a periodic Hann window of
 ``win_length`` samples zero-padded symmetrically to ``n_fft``, and
 transformed by ``torch.fft.rfft``. Everything runs in fp32, on the device of
@@ -25,17 +26,28 @@ def hann_window(win_length: int) -> torch.Tensor:
                             .astype(np.float32))
 
 
+def _reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
+    """x [..., T] reflect-padded by p on both sides, for any p (numpy's
+    repeated reflection when p >= T; ``F.pad`` takes only p < T)."""
+    T = x.shape[-1]
+    if p < T:
+        lead = x.shape[:-1]
+        return F.pad(x.reshape(-1, 1, T), (p, p), mode="reflect").reshape(*lead, T + 2 * p)
+    i = torch.arange(-p, T + p, device=x.device)
+    if T == 1:
+        return x[..., torch.zeros_like(i)]
+    j = torch.remainder(i, 2 * (T - 1))
+    return x[..., torch.where(j >= T, 2 * (T - 1) - j, j)]
+
+
 def stft_complex(x: torch.Tensor, n_fft: int, hop: int,
                  win_length: Optional[int] = None, center: bool = True) -> torch.Tensor:
     """Complex STFT of x [..., T] -> [..., n_fft // 2 + 1, n_frames], complex64,
     as ``torch.stft(center=True, pad_mode="reflect", onesided=True)``."""
     win_length = n_fft if win_length is None else win_length
     x = torch.nan_to_num(torch.as_tensor(x).float(), nan=0.0, posinf=0.0, neginf=0.0)
-    lead = x.shape[:-1]
     if center:
-        p = n_fft // 2
-        x = F.pad(x.reshape(-1, 1, x.shape[-1]), (p, p), mode="reflect")
-        x = x.reshape(*lead, x.shape[-1])
+        x = _reflect_pad(x, n_fft // 2)
     win = hann_window(win_length).to(x.device)
     if win_length < n_fft:
         lpad = (n_fft - win_length) // 2

@@ -20,6 +20,11 @@ With ``tail_kernel`` every narrow stack (C < 256) goes through
 either layout, between transposes in the channels-first one. A block's
 trailing snake runs fused into its stack.
 
+``Decoder.forward_train`` is the differentiable decode of the codec head's
+training: channels-first, every stack through the plain version
+``resunit_stack_ref`` (the kernels have no backward, and the JAX package's
+training keeps its XLA path too).
+
 ``encode``, ``decode`` and ``encode_quantized`` are the JAX package's
 functional entry points over one backbone (its ``dac.encode``,
 ``dac.decode`` and ``dac.encode_quantized``): they compute in the input's
@@ -38,7 +43,7 @@ from torch import nn
 from ..core.config import DacConfig
 from ..core.precision import fp32_exact
 from ..ops import timeconv as tc
-from ..ops.resunit import DILATIONS, ResUnit, Snake, resunit_stack
+from ..ops.resunit import DILATIONS, ResUnit, Snake, resunit_stack, resunit_stack_ref
 from ..ops.resunit_tm import resunit_stack_tm
 
 NARROW = 256     # stacks narrower than this take K3 under ``tail_kernel``
@@ -173,11 +178,15 @@ class DecoderBlock(nn.Module):
         self.units = _units(d // 2)
 
     def forward(self, x: torch.Tensor, cfg: DacConfig,
-                post_alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+                post_alpha: Optional[torch.Tensor] = None, stack=None) -> torch.Tensor:
+        """``stack`` (default: ``_unit_stack``'s choice of kernel) runs the
+        residual units."""
         # per-block geometry guard: the polyphase form needs k = 2r
         poly = cfg.poly_upsample and self.up.weight.shape[-1] == 2 * self.r
         up = conv1d_transpose_poly if poly else conv1d_transpose
         x = up(self.up, self.snake(x), self.r)
+        if stack is not None:
+            return stack(self.units, x, DILATIONS, post_alpha=post_alpha)
         return _unit_stack(self.units, x, cfg, post_alpha=post_alpha)
 
     def forward_tm(self, x: torch.Tensor, cfg: DacConfig,
@@ -212,13 +221,16 @@ class Decoder(nn.Module):
         return [self.out_snake.alpha if i == last else None
                 for i in range(len(self.blocks))]
 
-    def forward(self, z: torch.Tensor, cfg: Optional[DacConfig] = None) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, cfg: Optional[DacConfig] = None,
+                stack=None) -> torch.Tensor:
+        """``stack`` (default: the layout and kernel ``cfg`` picks) runs every
+        block's residual units, channels-first."""
         cfg = cfg or self.cfg
-        if cfg.time_major and self.poly_geometry_ok():
+        if stack is None and cfg.time_major and self.poly_geometry_ok():
             return self.forward_tm(z, cfg)
         y = conv1d(self.in_conv, z, padding=3)
         for block, post in zip(self.blocks, self._posts()):
-            y = block(y, cfg, post_alpha=post)
+            y = block(y, cfg, post_alpha=post, stack=stack)
         return torch.tanh(conv1d(self.out_conv, y, padding=3))
 
     def forward_tm(self, z: torch.Tensor, cfg: DacConfig) -> torch.Tensor:
@@ -226,6 +238,16 @@ class Decoder(nn.Module):
         for block, post in zip(self.blocks, self._posts()):
             y = block.forward_tm(y, cfg, post_alpha=post)
         return torch.tanh(tc.conv_tm(self.out_conv, y)).transpose(1, 2)
+
+    def forward_train(self, z: torch.Tensor, cfg: Optional[DacConfig] = None) -> torch.Tensor:
+        """The training decode, differentiable: channels-first, every stack
+        through ``resunit_stack_ref``. The time-major layouts and
+        ``tail_kernel`` are serving options, refused here."""
+        cfg = cfg or self.cfg
+        if cfg.time_major or cfg.tail_kernel:
+            raise ValueError("forward_train runs the channels-first decoder: "
+                             "time_major and tail_kernel are serving options")
+        return self(z, cfg, stack=resunit_stack_ref)
 
 
 def _l2n(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -4,6 +4,10 @@ TokenNorm and the single-block cross-attention predictor.
 Port of the JAX package's ``nn/layers.py``. Matmuls run in the input's dtype
 (fp32 for parity, bf16 for serving); layer norms and the softmax run in fp32.
 The attention over one AR chunk is plain ``torch.matmul``/``softmax``.
+Training drops the merged attention output at rate ``cfg.dropout`` (kept
+values scaled by ``1 / (1 - p)``), drawing from a generator the caller
+passes; with none there is no dropout, as in the JAX package without a
+dropout key.
 """
 
 from __future__ import annotations
@@ -77,9 +81,12 @@ class CrossPredictor(nn.Module):
         return x_bct.transpose(-1, -2) + self.pe[:x_bct.shape[-1]].to(x_bct.dtype)
 
     def forward(self, zt_prev: torch.Tensor, za: torch.Tensor,
-                kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                kv_valid: Optional[torch.Tensor] = None,
+                dropout: Optional[torch.Generator] = None) -> torch.Tensor:
         """zt_prev [B, C, Tq], za [B, C, Tkv] -> [B, C, Tq]. ``kv_valid``
-        [Tkv] or [B, Tkv] bool masks out keys (the padded tail of a chunk)."""
+        [Tkv] or [B, Tkv] bool masks out keys (the padded tail of a chunk);
+        ``dropout``, a generator on the inputs' device, turns on train-time
+        dropout."""
         h = self.cfg.heads
         dh = self.cfg.dim // h
         q = layer_norm(self.ln_q, self._posenc(zt_prev))           # [B, Tq, C]
@@ -100,7 +107,12 @@ class CrossPredictor(nn.Module):
         attn = torch.softmax(attn.float(), dim=-1).to(Q.dtype)
         ctx = torch.matmul(attn, V)
         B, _, Tq, _ = ctx.shape
-        y = linear(self.out, ctx.transpose(1, 2).reshape(B, Tq, self.cfg.dim))
+        merged = ctx.transpose(1, 2).reshape(B, Tq, self.cfg.dim)
+        p = self.cfg.dropout
+        if dropout is not None and p > 0.0:
+            keep = torch.rand(merged.shape, generator=dropout, device=merged.device) < 1.0 - p
+            merged = torch.where(keep, merged / (1.0 - p), 0.0)
+        y = linear(self.out, merged)
         y = y + q
         ff = linear(self.ffn_out, F.gelu(linear(self.ffn_in,
                                                 layer_norm(self.ffn_ln, y))))

@@ -9,7 +9,10 @@ product core ``csrc/resunit_mma.cuh`` that K3 shares, two launches per unit
 and one prologue that snakes the first unit's input and packs the stack's
 weights in bf16) and a CPU tensor through ``resunit_stack_ref``. It never
 sends a CUDA tensor to the plain version: what the kernel does not take
-raises.
+raises. The kernel has no backward (nor has the JAX package's, which trains
+through XLA): a CUDA call that autograd would record raises too
+(``refuse_autograd``), where the result would otherwise come back detached
+and the gradient silently cut.
 """
 
 from __future__ import annotations
@@ -87,6 +90,22 @@ def resunit_stack_ref(units: Sequence[ResUnit], x: torch.Tensor,
     if post_alpha is not None:
         x = snake(x, post_alpha)
     return x
+
+
+def refuse_autograd(fn: str, units: Sequence[ResUnit], x: torch.Tensor,
+                    post_alpha: Optional[torch.Tensor] = None) -> None:
+    """Raise when autograd would record a call of the kernel ``fn``: grad
+    mode on and x, a unit's weight or snake, or ``post_alpha`` requiring a
+    gradient. The kernels have no backward; a caller that trains through a
+    stack runs the plain version (``resunit_stack_ref``), one that does not
+    calls under ``torch.no_grad()``."""
+    if not torch.is_grad_enabled():
+        return
+    tensors = [x, post_alpha] + [p for u in units for p in u.parameters()]
+    if any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{fn}: the CUDA kernel has no backward, and autograd would record this "
+            "call; run it under torch.no_grad(), or train through the plain version")
 
 
 def _blocks(C: int, T: int, B: int, tile: Tuple[int, int]) -> int:
@@ -229,6 +248,7 @@ def resunit_stack(units: Sequence[ResUnit], x: torch.Tensor,
             raise ValueError("resunit_stack: unit weights do not match x")
     if post_alpha is not None and post_alpha.shape != (C,):
         raise ValueError("resunit_stack: post_alpha must be [C]")
+    refuse_autograd("resunit_stack", units, x, post_alpha)
 
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -16,7 +16,8 @@ the two stacks differ on purpose, each following its own TPU kernel.
 product core ``csrc/resunit_mma.cuh`` that K1 shares, with the tile of
 ``resunit.pick_tile``, two launches per unit and one prologue) and a CPU
 tensor through ``resunit_stack_tm_ref``. It never sends a CUDA tensor to the
-plain version: what the kernel does not take raises.
+plain version: what the kernel does not take raises, a call that autograd
+would record included (``resunit.refuse_autograd``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from .resunit import (DILATIONS, ResUnit, _check, _f32, _ptr, pick_tile, prologue_ptrs,
-                      stack_ptrs)
+                      refuse_autograd, stack_ptrs)
 from .timeconv import snake_tm
 
 # The TPU kernel's limits, which the wrapper keeps: its haloed window covers a
@@ -168,6 +169,7 @@ def resunit_stack_tm(units: Sequence[ResUnit], x_btc: torch.Tensor,
             raise ValueError("resunit_stack_tm: unit weights do not match x")
     if post_alpha is not None and post_alpha.shape != (C,):
         raise ValueError("resunit_stack_tm: post_alpha must be [C]")
+    refuse_autograd("resunit_stack_tm", units, x_btc, post_alpha)
 
     lib = _lib()
     stream = torch.cuda.current_stream(x_btc.device).cuda_stream

@@ -1,9 +1,9 @@
-"""Run-artifact readers and writers: JSON, CSV, a run's ``meta.json`` and
-the sweep's ``rvqB{B}_K{K}`` run directories.
+"""Run-artifact readers and writers: JSON, CSV, a run's ``hist.json`` and
+``meta.json``, and the sweep's ``rvqB{B}_K{K}`` run directories.
 
-The part of the JAX package's ``utils/artifacts.py`` that the evaluators use,
-copied: the same files in the same formats, so a run written by either
-package reads in the other.
+The JAX package's ``utils/artifacts.py`` but for ``write_curves`` (the loss
+curves' PNG, which needs matplotlib): the same files in the same formats, so
+a run written by either package reads in the other.
 """
 
 from __future__ import annotations
@@ -21,6 +21,14 @@ def write_json(path: str, obj: Any) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         json.dump(obj, f, indent=2)
+
+
+def write_hist(out_dir: str, hist: dict) -> None:
+    write_json(os.path.join(out_dir, "hist.json"), hist)
+
+
+def write_meta(out_dir: str, meta: dict) -> None:
+    write_json(os.path.join(out_dir, "meta.json"), meta)
 
 
 def read_meta(out_dir: str) -> Optional[dict]:

@@ -51,7 +51,7 @@ def test_no_forbidden_import(path):
 
 
 _BLOCKED_RUN = f"""
-import importlib.abc, sys
+import importlib.abc, os, sys
 BLOCK = {sorted(FORBIDDEN)!r}
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -92,6 +92,17 @@ import {PORT}.scripts.measure_latencies
 scp = StreamingCodec(m, batch=1, frame_sec=0.2, fast=False, compute_dtype=torch.float32,
                      device="cpu", parallel_roll=True)
 assert scp.encode_to_bytes(a, t) == streams
+import tempfile
+import {PORT}.scripts.train_codec, {PORT}.data.synth, {PORT}.utils.msgpack_write
+from {PORT}.core.config import TrainConfig
+from {PORT}.train import loop
+with tempfile.TemporaryDirectory() as d:
+    hist = loop.train_codec(CodecConfig().tiny(), TrainConfig(epochs=1, batch=1),
+                            {{"audio": m.audio_dac, "tactile": m.tactile_dac}},
+                            train_batches=lambda ep: iter([(a, t)]),
+                            val_batches=lambda: iter([(a, t)]), out_dir=d, device="cpu",
+                            log=lambda s: None)
+    assert len(hist["train"]) == 1 and os.path.exists(os.path.join(d, "last.msgpack"))
 assert not any(n.split(".")[0] in BLOCK for n in sys.modules)
 print("ISOLATED_OK", len(streams[0]))
 """
