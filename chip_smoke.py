@@ -134,7 +134,51 @@ random ones made from ``--seed``. Phases, one line of numbers each:
    trained head through ``convert.load_codec`` and a ``StreamingCodec`` bytes
    round trip. Reported: train-step and eval-step ms by CUDA events, data
    wait per step, steps/s, K1's share of a train step's device time
-   (torch.profiler), ``torch.cuda.max_memory_allocated``.
+   (torch.profiler), ``torch.cuda.max_memory_allocated``;
+15. cached_train: head training on the frozen-backbone latent cache
+   (``train/latent_cache.py``) with phase 14's configuration, corpus and
+   backbone: the cache of the 24 whole two-second pairs built in batches of
+   6 (K1 48 times a batch: the two frozen encoders' 8 fp32 stacks); a
+   cached train step and a cached eval step on 1-s crops launch K1, K2 and K3
+   0 times; a cached eval step on whole-file crops gives the generator
+   path's eval loss on the same files within 1e-6 relative;
+   ``train_codec(cache=...)`` for 2 epochs (20 train rows, 4 validation
+   rows) launches no kernel, its books stay put in epoch 1 and move in epoch
+   2, and ``last``/``best`` read back equal to the live head; ``run_sweep``
+   over books (2, 4) x embed (128,) for 1 epoch on the cache writes both run
+   directories and a ``sweep_summary.csv`` sorted by (est_kbps, best_val)
+   with est_kbps the configuration's nominal rate, and a second call
+   trains nothing and leaves every checkpoint's bytes as they were.
+   Reported: the cache's bytes and build seconds; the cached train and eval
+   step by CUDA events and by device time (torch.profiler), their busy
+   share and the peak memory, beside phase 14's generator step; steps/s;
+   the largest relative gap of a crop's interior tokens (``EDGE_TOKENS``
+   from the edges) against live latents of the cropped waveform (not gated:
+   the encoders' receptive field spans more than two tokens);
+16. plc_train: ``plc/train.py::train_plc`` at full width, uniform packets,
+   ``mask_embed`` on, the masked latent and time terms at 1.0 and 0.5 (the
+   JAX script's defaults), batch 6, 2 epochs of which the first is the
+   decoder-free latent regression, on phase 14's corpus and backbone. Gates:
+   a full-loss waveform step launches K1 48 times; after one step every
+   PLC-head leaf that the forward reads (all but ``tokennorm``, which it does
+   not read, as in the JAX package) has a finite gradient that is not all
+   zero; the step through K1 against the same step through the plain stacks
+   (loss within 1e-6 relative, every gradient within 1e-4 of its leaf's
+   largest); ``last``/``best`` read back equal to the live head;
+   ``plc_config_from_meta`` returns the run's ``PLCConfig``; the trained
+   head serves through ``StreamingConcealer`` (bf16, 56 K1 launches). Then
+   ``finetune_inpaint_decoder`` for 1 epoch: every backbone and head leaf
+   bit-equal before and after, the written ``dec_plc.msgpack`` differs from
+   the stock decoder; ``eval_plc_uniform`` on the 4 validation pairs with
+   that decoder as ``dec_ft`` gives the zero-fill columns of the run
+   without it and another concealed column. Reported: the step by CUDA
+   events and device time, the peak memory, the phase's wall seconds.
+
+Phase 13 also gates F5: the bf16 encode's chained ``device_time_ms`` (CUDA
+graph replays, ``eval/latency.py::measure_device_ms``) through the scan and
+through the parallel roll lies within 0.9-2.0x the profiler's kernel sum of
+one encode; the eager chain of Python calls that it replaced is printed
+beside it.
 
 Then a JSON line of per-kernel numbers and, last, the device line. An error
 raises at once; a numeric gate that fails is reported when it fails, and the
@@ -163,9 +207,10 @@ import torch
 
 from multimodal_vqvae_compression_audio_tactile_tpu_torch import _build
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.convert import (
-    dac_tree, head_template, head_tree, load_codec, load_dac, load_plc)
+    dac_tree, decoder_leaves, head_template, head_tree, load_codec, load_dac, load_decoder,
+    load_plc, load_plc_head, plc_head_template, plc_head_tree)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.config import (
-    CodecConfig, EvalConfig, RVQConfig, TrainConfig)
+    CodecConfig, EvalConfig, LossConfig, PLCConfig, RVQConfig, SweepConfig, TrainConfig)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.precision import fp32_exact
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.data import (
     SegmentDataset, batch_iterator, pair_stems, split_items)
@@ -183,11 +228,15 @@ from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc import model as pl
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc.eval_categories import (
     eval_plc_categories)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc.eval_uniform import eval_plc_uniform
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc import train as plc_train
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc.train import plc_config_from_meta
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.scripts.build_latent_cache import (
+    full_batches)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.scripts.measure_latencies import (
     measure as measure_latencies)
-from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import checkpoint
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import checkpoint, latent_cache
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import loop as train_loop
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.train.sweep import run_sweep
 
 # Published dense peaks of one H100 SXM at 700 W: fp32 outside the tensor
 # cores, bf16 in them, and HBM3 bandwidth.
@@ -809,10 +858,7 @@ def concealer_modules(codec: allpred_ar.CodecModules, head: plc.PLCHead,
     there, as the JAX package's takes it from ``cfg``)."""
     cfg = codec.cfg
     cfg = dataclasses.replace(cfg, dac=dataclasses.replace(cfg.dac, tail_kernel=tail_kernel))
-    with torch.device("meta"):
-        pm = plc.PLCModules(cfg, n_layers=len(head.predict_extra) + 1)
-    pm.audio_dac, pm.tactile_dac, pm.head = codec.audio_dac, codec.tactile_dac, head
-    return pm
+    return plc.plc_of(codec.audio_dac, codec.tactile_dac, head, cfg)
 
 
 @torch.no_grad()
@@ -1130,14 +1176,43 @@ def parallel_roll_phase(m: allpred_ar.CodecModules, a, tc, many: tuple, default:
             sc = r["codec"]
             dtm = sc.device_time_ms(n_lo=4, n_hi=16, reps=2)
             prof = profile_calls(f"{form}_roll_{dt}", {"encode": lambda: sc.encode(a, tc)})
+            chained, profiled = dtm["encode_ms_per_batch"], prof["encode"]["device_ms"]
             forms[form] = {"encode_events_ms": cuda_ms(lambda: sc.encode(a, tc), reps=5),
                            "decode_z_run_events_ms": cuda_ms(lambda: sc.decode(r["z_run"]),
                                                              reps=5),
-                           "encode_chained_ms": dtm["encode_ms_per_batch"],
+                           "encode_chained_ms": chained,
                            "decode_z_run_chained_ms": dtm["decode_ms_per_batch"],
                            "encode_chained_spread_ms": dtm["encode"]["slope_spread_ms"],
-                           "encode_profiled_device_ms": prof["encode"]["device_ms"]}
+                           "encode_profiled_device_ms": profiled,
+                           "encode_chained_over_profiled": chained / profiled,
+                           "encode_eager_chain_ms": eager_chain_ms(sc)}
+            if dt == "bfloat16":
+                # F5: the chain of graph replays reads the device's time
+                gate(0.9 * profiled <= chained <= 2.0 * profiled,
+                     f"F5: {form} bf16 encode chained {chained:.3f} ms, profiled kernel sum "
+                     f"{profiled:.3f} ms: not within 0.9-2.0x")
         say("parallel_roll_latency", dtype=dt, **forms)
+
+
+def eager_chain_ms(sc: StreamingCodec, n_lo: int = 4, n_hi: int = 16) -> float:
+    """The chained encode slope as the port measured it before CUDA graphs:
+    eager Python calls timed by CUDA events (best of 2 chains per length),
+    for comparison with ``device_time_ms``."""
+    rng = np.random.default_rng(3)
+    a0, t0 = (sc._put((0.1 * rng.standard_normal((sc.batch, 1, sc.frame))).astype(np.float32))
+              for _ in range(2))
+
+    def chain(n):
+        c = a0
+        for _ in range(n):
+            z = sc._encode(sc.modules, c, t0, n_books_use=sc.n_books_use, cfg=sc.cfg)[0]
+            c = (t0 + 1e-6 * torch.tanh(z.float().mean())).to(c.dtype)
+        return c.float().abs().sum()
+
+    chain(n_lo)
+    best = {n: min(cuda_ms(lambda: chain(n), reps=1, warm=0) for _ in range(2))
+            for n in (n_lo, n_hi)}
+    return (best[n_hi] - best[n_lo]) / (n_hi - n_lo)
 
 
 TRAIN_DIR = os.path.join(REPO, "build", "chip_smoke_train")
@@ -1221,9 +1296,10 @@ def train_probes(cfg, tcfg, bb, batch_np, seed: int) -> dict:
     return out
 
 
-def train_phase(seed: int, a, tc) -> None:
+def train_phase(seed: int, a, tc) -> dict:
     """The codec head's training on the card; see the module docstring
-    (phase 14)."""
+    (phase 14). -> what phases 15 and 16 reuse: the configuration, the
+    corpus, the backbone and the generator step's numbers."""
     t_phase = time.perf_counter()
     cfg = CodecConfig(rvq=RVQConfig(n_books=10, n_embed=128, ema_warm_epochs=1))
     tcfg = TrainConfig(epochs=2, best_after_epoch=0)
@@ -1302,6 +1378,331 @@ def train_phase(seed: int, a, tc) -> None:
         data_wait_ms_max=1e3 * float(np.max(n_waits)), launches_run=n_run,
         hist={k: hist[k] for k in ("train", "val", "vq_bits", "vq_used")}, files=files,
         ema_epoch2_only=ema_ok, wall_s=time.perf_counter() - t_phase)
+    return {"cfg": cfg, "tcfg": tcfg, "pairs": pairs, "split": (tr, va), "bb": bb,
+            "weights": weights, "probes": probes}
+
+
+def step_times(calls: dict) -> dict:
+    """Each call's ms by CUDA events (mean of 5 after a warm-up) and its
+    device ms and busy share by torch.profiler."""
+    out, prof = {}, profile_calls("cached_train", calls)
+    for name, fn in calls.items():
+        out[f"{name}_ms"] = cuda_ms(fn, reps=5, warm=1)
+        out[f"{name}_device_ms"] = prof[name]["device_ms"]
+        out[f"{name}_busy_share"] = prof[name]["busy_share"]
+    return out
+
+
+def cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for t in cache)
+
+
+def interior_gap(m, cfg, cache, pairs_ds, seg_tok: int, tok0: int) -> dict:
+    """The largest gap of a crop's interior tokens (``EDGE_TOKENS`` from
+    either edge) against the live latents of the cropped waveform, relative
+    to the live latents' largest, for row 0 of the cache."""
+    hop, e = cfg.dac.hop, latent_cache.EDGE_TOKENS
+    a, tcw = (torch.from_numpy(pairs_ds._prep(p)[None, :, tok0 * hop:(tok0 + seg_tok) * hop]
+                               ).float().cuda() for p in pairs_ds.items[0][:2])
+    with torch.no_grad(), fp32_exact():
+        qa, zt = allpred_ar.backbone_latents(m, a, tcw, cfg)
+    cqa, czt, _ = latent_cache.gather_crops(cache, torch.tensor([0]).cuda(),
+                                            torch.tensor([tok0]).cuda(), seg_tok, hop)
+    return {k: rel_err(c[..., e:seg_tok - e], live[..., e:seg_tok - e])
+            for k, c, live in (("qa", cqa, qa), ("zt", czt, zt))}
+
+
+def cached_train_phase(ctx: dict, seed: int) -> None:
+    """Head training on the frozen-backbone latent cache; see the module
+    docstring (phase 15)."""
+    t_phase = time.perf_counter()
+    cfg = ctx["cfg"]
+    tcfg = dataclasses.replace(ctx["tcfg"], epochs=2, best_after_epoch=0)
+    bb = ctx["bb"]
+    bbs = {"audio": bb, "tactile": bb}
+    pairs = ctx["pairs"]
+    ds = SegmentDataset(pairs, sr=tcfg.target_sr, seg=tcfg.seg, seed=tcfg.seed)
+    batches = list(full_batches(ds, pairs, tcfg.batch))
+    seg_tok, hop = int(round(tcfg.seg_sec * cfg.dac.tokens_per_sec)), cfg.dac.hop
+
+    # the build: the encoders once over the corpus, 48 K1 launches a batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, n_build, _ = counted(lambda: latent_cache.build_latent_cache(bbs, cfg, iter(batches)))
+    build_s = time.perf_counter() - t0
+    want = {"resunit_stack": len(batches) * expect(False, k1=8)["resunit_stack"],
+            "resunit_stack_tm": 0, "rvq_lookup": 0}
+    gate(n_build == want, f"cached_train: cache build launches {n_build}, expected {want}")
+    t_tok = cache.qa.shape[-1]
+
+    # the step functions on the cache: no kernel launched
+    train_step, eval_step = train_loop.make_step_fns(cfg, tcfg)
+    head = allpred_ar.head_init(cfg, torch.Generator().manual_seed(seed)).cuda()
+    m = allpred_ar.codec_of(bb, bb, head, cfg)
+    state = train_loop.TrainState(m, train_loop.AdamW(train_loop.adamw_params(head), tcfg, 3))
+    idx, tok0 = (torch.from_numpy(x[0]).cuda() for x in latent_cache.crop_index_arrays(
+        np.arange(len(pairs)), t_tok, seg_tok, tcfg.batch, 1, seed, 1))
+    qa, zt, tc = latent_cache.gather_crops(cache, idx, tok0, seg_tok, hop)
+    with fp32_exact():
+        torch.cuda.reset_peak_memory_stats()
+        _, n_train, _ = counted(lambda: train_step(state, (qa, zt), tc, seed + 1, True))
+        _, n_eval, _ = counted(lambda: eval_step(m, (qa, zt), tc))
+        none = expect(False)
+        gate(n_train == none and n_eval == none,
+             f"cached_train: a cached train step launched {n_train}, an eval step {n_eval}")
+        times = step_times({"cached_train_step": lambda: train_step(state, (qa, zt), tc,
+                                                                    seed + 1, True),
+                            "cached_eval_step": lambda: eval_step(m, (qa, zt), tc)})
+        peak = torch.cuda.max_memory_allocated()
+        # whole-file crops against the generator path's eval step on the files
+        rows = torch.arange(tcfg.batch).cuda()
+        wq, wz, wt = latent_cache.gather_crops(cache, rows, torch.zeros_like(rows), t_tok, hop)
+        a_files, tc_files = (torch.from_numpy(x).cuda() for x in batches[0])
+        cached_loss = float(eval_step(m, (wq, wz), wt)[0])
+        live_loss = float(eval_step(m, a_files, tc_files)[0])
+    loss_rel = abs(cached_loss - live_loss) / abs(live_loss)
+    gate(loss_rel <= 1e-6, f"cached_train: whole-file cached eval loss {cached_loss} against "
+         f"the generator path's {live_loss} ({loss_rel:.3e})")
+    gap = interior_gap(m, cfg, cache, ds, seg_tok, t_tok // 2 - seg_tok // 2)
+
+    # train_codec on the cache: books still in epoch 1, moved in epoch 2
+    run_cfg = dataclasses.replace(cfg, rvq=dataclasses.replace(cfg.rvq, ema_warm_epochs=1))
+    out_dir = os.path.join(TRAIN_DIR, "cached_run")
+    books0 = allpred_ar.head_init(run_cfg, torch.Generator().manual_seed(seed)).vq_books.detach()
+    seen: dict = {}
+
+    def on_epoch(ep, h):
+        seen[ep] = checkpoint.snapshot(head_tree(h))
+
+    n_tr = len(pairs) - 4
+    t0 = time.perf_counter()
+    hist, n_run, _ = counted(lambda: train_loop.train_codec(
+        run_cfg, tcfg, bbs, None, None, out_dir, seed=seed, cache=cache,
+        cache_train_rows=list(range(n_tr)), cache_val_rows=list(range(n_tr, len(pairs))),
+        seg_tok=seg_tok, on_epoch=on_epoch, log=lambda s: print(f"[cached] {s}", flush=True)))
+    run_s = time.perf_counter() - t0
+    gate(n_run == expect(False), f"cached_train: train_codec(cache=...) launched {n_run}")
+    b1, b2 = seen[1]["vq_books"].cpu(), seen[2]["vq_books"].cpu()
+    ema_ok = torch.equal(b1, books0) and not torch.equal(b2, b1)
+    gate(ema_ok and hist["ema"] == [0.0, 1.0], f"cached_train: books (ema {hist['ema']})")
+    files = {}
+    for name in ("last", "best"):
+        tree, epoch, _ = checkpoint.load_checkpoint(os.path.join(out_dir, f"{name}.msgpack"),
+                                                    head_template(run_cfg))
+        live = checkpoint.to_host(seen[epoch])
+        same = all(np.array_equal(tree_at(tree, p), tree_at(live, p))
+                   for p, _ in checkpoint.flatten(live))
+        files[name] = {"epoch": epoch, "equal_live_head": same}
+        gate(same, f"cached_train: {name}.msgpack (epoch {epoch}) differs from the live head")
+
+    # the sweep on the cache, then again: nothing retrained, no byte changed
+    sweep_root = os.path.join(TRAIN_DIR, "sweep")
+    scfg = SweepConfig(books_grid=(2, 4), embed_grid=(128,))
+    stcfg = dataclasses.replace(tcfg, epochs=1)
+    kw = dict(cache=cache, cache_train_rows=list(range(n_tr)),
+              cache_val_rows=list(range(n_tr, len(pairs))), seg_tok=seg_tok)
+    t0 = time.perf_counter()
+    rows_sw = run_sweep(cfg, stcfg, scfg, bbs, None, None, sweep_root, log=lambda s: None, **kw)
+    sweep_s = time.perf_counter() - t0
+    with open(os.path.join(sweep_root, "sweep_summary.csv")) as f:
+        csv_rows = [line.strip().split(",") for line in f][1:]
+    keys = [(float(r[5]), float(r[6])) for r in csv_rows]
+    tps = cfg.dac.tokens_per_sec
+    gate([r[0] for r in csv_rows] == ["rvqB2_K128", "rvqB4_K128"] and keys == sorted(keys)
+         and all(float(r[5]) == cfg.with_rvq(int(r[1]), int(r[2])).kbps(tps) for r in csv_rows)
+         and all(os.path.isdir(os.path.join(sweep_root, r[0])) for r in csv_rows),
+         f"cached_train: sweep_summary.csv {csv_rows}")
+    blobs = {os.path.join(d, f): open(os.path.join(d, f), "rb").read()
+             for d, _, fs in os.walk(sweep_root) for f in fs if f.endswith(".msgpack")}
+    logs: list = []
+    _, n_again, _ = counted(lambda: run_sweep(cfg, stcfg, scfg, bbs, None, None, sweep_root,
+                                              log=logs.append, **kw))
+    unchanged = all(open(p, "rb").read() == b for p, b in blobs.items())
+    gate(unchanged and sum("skip" in s for s in logs) == 2 and not any("Epoch" in s for s in logs)
+         and n_again == expect(False),
+         f"cached_train: the second sweep retrained or changed a checkpoint ({logs})")
+    gen = ctx["probes"]
+    say("cached_train", weights=ctx["weights"], config="rvqB10_K128", batch=tcfg.batch,
+        seg_tok=seg_tok, cache_pairs=int(cache.qa.shape[0]), cache_tokens=int(t_tok),
+        cache_bytes=cache_bytes(cache), cache_build_s=build_s,
+        launches_cache_build=n_build, launches_cached_train_step=n_train,
+        launches_cached_eval_step=n_eval, **times, max_memory_allocated_bytes=peak,
+        generator_step={k: gen[k] for k in ("train_step_ms", "train_step_device_ms",
+                                            "train_step_busy_share", "eval_step_ms",
+                                            "eval_step_device_ms",
+                                            "max_memory_allocated_bytes")},
+        whole_file_eval_loss={"cached": cached_loss, "generator": live_loss,
+                              "rel_err": loss_rel},
+        interior_token_rel_gap=gap, edge_tokens=latent_cache.EDGE_TOKENS,
+        run_wall_s=run_s, steps_per_s=tcfg.epochs * (n_tr // tcfg.batch) / run_s,
+        hist={k: hist[k] for k in ("train", "val", "vq_bits", "vq_used")}, files=files,
+        sweep=[{k: r[k] for k in ("run", "est_kbps", "best_val")} for r in rows_sw],
+        sweep_wall_s=sweep_s, sweep_rerun_unchanged=unchanged,
+        wall_s=time.perf_counter() - t_phase)
+
+
+def plc_leaves_used(head: plc.PLCHead) -> dict:
+    """The PLC head's leaves that the forward reads: all but ``tokennorm``
+    (kept for checkpoint parity, as in the JAX package)."""
+    return {n: p for n, p in head.named_parameters() if not n.startswith("tokennorm")}
+
+
+def plc_train_probes(cfg, tcfg, pcfg, bb, batch_np, seed: int) -> dict:
+    """One full-loss waveform step: launches, gradients, K1 against the
+    plain stacks, times, memory."""
+    a, tc = (torch.from_numpy(x).cuda() for x in batch_np)
+    t_lat = int(round(tcfg.seg_sec * cfg.dac.tokens_per_sec))
+    mk = torch.from_numpy(masks.make_token_loss_mask(np.random.default_rng(seed), a.shape[0],
+                                                     t_lat, pcfg.packet_tok,
+                                                     pcfg.packet_loss_prob)).cuda()
+    bbs = {"audio": bb, "tactile": bb}
+    train_step, eval_step, _ = plc_train.make_plc_train_step(cfg, tcfg, pcfg.mask_embed)
+
+    def fresh():
+        head = plc.plc_head_init(cfg, torch.Generator().manual_seed(seed), pcfg.n_layers).cuda()
+        return plc_train.PLCTrainState(head, train_loop.AdamW(list(head.parameters()), tcfg, 3))
+
+    def grads(state):
+        return {n: p.grad.detach().clone() for n, p in plc_leaves_used(state.head).items()}
+
+    out = {}
+    with fp32_exact():
+        torch.cuda.reset_peak_memory_stats()
+        state = fresh()
+        metrics, n_step, _ = counted(lambda: train_step(state, bbs, a, tc, mk, seed + 1))
+        g = grads(state)
+        bad = [n for n, t in g.items() if not bool(torch.isfinite(t).all())
+               or not bool(t.abs().sum() > 0)]
+        gate(not bad, f"plc_train: head gradients not finite or all zero after one step: {bad}")
+        gate(n_step == expect(False, k1=8), f"plc_train: a waveform step launched {n_step}")
+        ref_state = fresh()
+        with plain_stacks():
+            ref_metrics, n_plain, _ = counted(lambda: train_step(ref_state, bbs, a, tc, mk,
+                                                                 seed + 1))
+        gate(not any(n_plain.values()), f"plc_train: plain step launched a kernel: {n_plain}")
+        loss_rel = abs(float(metrics[0]) - float(ref_metrics[0])) / abs(float(ref_metrics[0]))
+        errs = leaf_grad_errs(g, grads(ref_state))
+        gate(loss_rel <= 1e-6 and max(errs.values()) <= 1e-4,
+             f"plc_train: K1 step against the plain stacks: loss {loss_rel:.3e}, "
+             f"grads {max(errs.values()):.3e}")
+        out.update(launches_step=n_step, launches_plain_step=n_plain,
+                   loss=float(metrics[0]), loss_rel_err_k1_vs_plain=loss_rel,
+                   max_grad_rel_err_k1_vs_plain=max(errs.values()))
+        for name, fn in {"train_step": lambda: train_step(state, bbs, a, tc, mk, seed + 1),
+                         "eval_step": lambda: eval_step(state.head, bbs, a, tc, mk)}.items():
+            out[f"{name}_ms"] = cuda_ms(fn, reps=5, warm=1)
+        prof = profile_calls("plc_train", {
+            "train_step": lambda: train_step(state, bbs, a, tc, mk, seed + 1)})["train_step"]
+        out.update(train_step_device_ms=prof["device_ms"], train_step_busy_share=prof["busy_share"],
+                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def plc_train_phase(ctx: dict, seed: int) -> None:
+    """The PLC trainer and the inpainting-decoder fine-tune at full width;
+    see the module docstring (phase 16)."""
+    t_phase = time.perf_counter()
+    cfg = CodecConfig()
+    tcfg = dataclasses.replace(ctx["tcfg"], epochs=2, best_after_epoch=0,
+                               loss=LossConfig(w_plc_latent=1.0, w_plc_masked=0.5))
+    pcfg = PLCConfig(mask_embed=True)
+    bb = ctx["bb"]
+    bbs = {"audio": bb, "tactile": bb}
+    tr, va = ctx["split"]
+    ds_tr = SegmentDataset(tr, sr=tcfg.target_sr, seg=tcfg.seg, seed=tcfg.seed)
+    ds_va = SegmentDataset(va, sr=tcfg.target_sr, seg=tcfg.seg, seed=tcfg.seed)
+    probes = plc_train_probes(cfg, tcfg, pcfg, bb,
+                              next(batch_iterator(ds_tr, tcfg.batch, seed=seed)), seed)
+
+    def batches(ep):
+        return batch_iterator(ds_tr, tcfg.batch, seed=tcfg.seed, epoch=ep)
+
+    def val_batches():
+        return batch_iterator(ds_va, tcfg.batch, shuffle=False, drop_last=False)
+
+    out_dir = os.path.join(TRAIN_DIR, "plc_run")
+    seen: dict = {}
+
+    def on_epoch(ep, h):
+        seen[ep] = checkpoint.snapshot(plc_head_tree(h))
+
+    t0 = time.perf_counter()
+    hist, n_run, _ = counted(lambda: plc_train.train_plc(
+        cfg, tcfg, pcfg, bbs, batches, val_batches, out_dir, seed=seed,
+        latent_pretrain_epochs=1, on_epoch=on_epoch,
+        log=lambda s: print(f"[plc_train] {s}", flush=True)))
+    run_s = time.perf_counter() - t0
+    files = {}
+    for name in ("last", "best"):
+        tree, epoch, _ = checkpoint.load_checkpoint(os.path.join(out_dir, f"{name}.msgpack"),
+                                                    plc_head_template(cfg, pcfg.n_layers))
+        live = checkpoint.to_host(seen[epoch])
+        same = all(np.array_equal(tree_at(tree, p), tree_at(live, p))
+                   for p, _ in checkpoint.flatten(live))
+        files[name] = {"epoch": epoch, "equal_live_head": same}
+        gate(same, f"plc_train: {name}.msgpack (epoch {epoch}) differs from the live head")
+    gate(plc_train.plc_config_from_meta(out_dir) == pcfg and hist["tmse"][0] == 0.0
+         and all(np.isfinite(hist["train"] + hist["val"])), f"plc_train: meta or hist {hist}")
+
+    # the trained head served by the concealer
+    head = load_plc_head(os.path.join(out_dir, "best.msgpack"), cfg, pcfg.n_layers).cuda()
+    pm = plc.plc_of(bb, bb, head, cfg)
+    a_np, tc_np = signal(seed + 5, 24000)
+    mk = torch.from_numpy(masks.make_token_loss_mask(np.random.default_rng(seed), 1, 75,
+                                                     pcfg.packet_tok, 0.5)).cuda()
+    with torch.no_grad(), fp32_exact():
+        zt = bb.encoder(torch.from_numpy(tc_np).cuda(), cfg.dac)
+    scn = StreamingConcealer(pm, batch=1, mask_embed=pcfg.mask_embed)
+    y, n_conceal, _ = counted(lambda: scn.conceal(a_np, zt * ~mk[:, None, :], mk))
+    gate(y.shape == (1, 1, 24000) and bool(torch.isfinite(y).all())
+         and n_conceal == expect(True, k1=8),
+         f"plc_train: the trained head through StreamingConcealer: launches {n_conceal}")
+
+    # the inpainting decoder: only the decoder copy trains
+    before = {k: v.detach().clone() for k, v in
+              list(bb.state_dict().items()) + [("head." + k, v) for k, v in
+                                               head.state_dict().items()]}
+    t0 = time.perf_counter()
+    dh, n_ft, _ = counted(lambda: plc_train.finetune_inpaint_decoder(
+        cfg, tcfg, pcfg, bbs, head, batches, val_batches, out_dir, seed=seed, epochs=1,
+        log=lambda s: print(f"[plc_decft] {s}", flush=True)))
+    ft_s = time.perf_counter() - t0
+    after = dict(list(bb.state_dict().items()) + [("head." + k, v) for k, v in
+                                                  head.state_dict().items()])
+    others_equal = all(torch.equal(after[k], v) for k, v in before.items())
+    dec_path = os.path.join(out_dir, "dec_plc.msgpack")
+    dec = load_decoder(dec_path, cfg.dac).cuda()
+    dec_moved = max(float((p - q).detach().abs().max()) for (_, p, _), (_, q, _) in
+                    zip(decoder_leaves(dec), decoder_leaves(bb.decoder)))
+    gate(others_equal and dec_moved > 0.0,
+         f"plc_train: the fine-tune changed another leaf ({not others_equal}) or no decoder "
+         f"leaf (largest change {dec_moved})")
+
+    # dec_ft in the evaluator: the zero-fill floor as without, the concealed row not
+    ev = os.path.join(TRAIN_DIR, "plc_eval")
+    quiet = lambda *_: None                                      # noqa: E731
+    plain_ev, n_ev, _ = counted(lambda: eval_plc_uniform(pm, va, os.path.join(ev, "stock"),
+                                                         pcfg, log=quiet))
+    ft_ev = eval_plc_uniform(pm, va, os.path.join(ev, "dec_ft"), pcfg, dec_ft=dec, log=quiet)
+    zero_same = all(ft_ev[k] == plain_ev[k] for k in ("mean_psnr_masked_zero_db",
+                                                      "mean_stsim_global_zero"))
+    gate(zero_same and ft_ev["mean_psnr_masked_db"] != plain_ev["mean_psnr_masked_db"]
+         and np.isfinite(ft_ev["dec_ft_gain_masked_db"]),
+         f"plc_train: dec_ft in eval_plc_uniform: zero-fill equal {zero_same}, concealed "
+         f"{ft_ev['mean_psnr_masked_db']} against {plain_ev['mean_psnr_masked_db']}")
+    say("plc_train", weights=ctx["weights"], mode="uniform", batch=tcfg.batch,
+        epochs=tcfg.epochs, latent_pretrain_epochs=1, plc=dataclasses.asdict(pcfg), **probes,
+        launches_run=n_run, run_wall_s=run_s, files=files,
+        hist={k: hist[k] for k in ("train", "val", "lat", "tmse", "val_masked_snr_db")},
+        conceal_launches=n_conceal, decoder_ft_wall_s=ft_s, decoder_ft_launches=n_ft,
+        decoder_ft_hist=dh, decoder_ft_largest_change=dec_moved,
+        others_bit_equal=others_equal, eval_files=len(va), eval_launches=n_ev,
+        eval_stock={k: plain_ev[k] for k in ("mean_psnr_masked_db", "mean_psnr_masked_zero_db",
+                                             "plc_gain_masked_db")},
+        eval_dec_ft={k: ft_ev[k] for k in ("mean_psnr_masked_db", "mean_psnr_masked_zero_db",
+                                           "mean_psnr_masked_stockdec_db",
+                                           "dec_ft_gain_masked_db")},
+        wall_s=time.perf_counter() - t_phase)
 
 
 def tree_at(tree, path):
@@ -1423,7 +1824,9 @@ def main() -> int:
     plc_eval_phase()
     codec_eval_phase(m, weights)
     parallel_roll_phase(m, a, tc, many, default)
-    train_phase(args.seed, a, tc)
+    ctx = train_phase(args.seed, a, tc)
+    cached_train_phase(ctx, args.seed)
+    plc_train_phase(ctx, args.seed)
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} gate(s) failed", file=sys.stderr)
         return 1

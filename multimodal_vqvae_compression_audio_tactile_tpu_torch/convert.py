@@ -11,10 +11,10 @@ Layouts that differ between the two packages:
   projections and codebooks) keep their layout.
 
 Every conversion into the port is strict: a missing, extra or mis-shaped
-leaf raises; only a training resume (``load_head_tolerant``) keeps a leaf
-the checkpoint lacks, as the JAX package's resume does. ``head_tree`` and
-``dac_tree`` go the other way, a module to its JAX-layout tree, for the
-checkpoint writer.
+leaf raises; only a training resume (``load_tolerant``) keeps a leaf the
+checkpoint lacks, as the JAX package's resume does. ``head_tree``,
+``dac_tree``, ``decoder_tree`` and ``plc_head_tree`` go the other way, a
+module to its JAX-layout tree, for the checkpoint writer.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from torch import nn
 
 from .core.config import CodecConfig, DacConfig
 from .models.allpred_ar import CodecModules, Head, codec_of
-from .models.dac import DAC
+from .models.dac import DAC, Decoder
 from .nn.layers import CrossPredictor
 from .ops.resunit import ResUnit
 from .plc.model import PLCHead, PLCModules
@@ -51,9 +51,24 @@ def _unit(p: Path, u: ResUnit) -> Iterator[Leaf]:
     yield from _conv(p + ("conv2",), u.conv2)
 
 
+def decoder_leaves(dec: Decoder, prefix: Path = ()) -> Iterator[Leaf]:
+    """(JAX path, tensor, layout) for every parameter of a backbone's
+    decoder, the paths under ``prefix`` (``("decoder",)`` in a backbone
+    tree; none in a decoder checkpoint such as ``dec_plc.msgpack``)."""
+    yield from _conv(prefix + ("in_conv",), dec.in_conv)
+    for i, b in enumerate(dec.blocks):
+        p = prefix + ("blocks", i)
+        yield p + ("snake", "alpha"), b.snake.alpha, None
+        yield from _conv(p + ("up",), b.up, "t01")
+        for j, u in enumerate(b.units):
+            yield from _unit(p + ("units", j), u)
+    yield prefix + ("out_snake", "alpha"), dec.out_snake.alpha, None
+    yield from _conv(prefix + ("out_conv",), dec.out_conv)
+
+
 def dac_leaves(m: DAC) -> Iterator[Leaf]:
     """(JAX path, tensor, layout) for every parameter of a backbone."""
-    enc, dec, q = m.encoder, m.decoder, m.quantizer
+    enc, q = m.encoder, m.quantizer
     yield from _conv(("encoder", "in_conv"), enc.in_conv)
     for i, b in enumerate(enc.blocks):
         p = ("encoder", "blocks", i)
@@ -63,15 +78,7 @@ def dac_leaves(m: DAC) -> Iterator[Leaf]:
         yield from _conv(p + ("down",), b.down)
     yield ("encoder", "out_snake", "alpha"), enc.out_snake.alpha, None
     yield from _conv(("encoder", "out_conv"), enc.out_conv)
-    yield from _conv(("decoder", "in_conv"), dec.in_conv)
-    for i, b in enumerate(dec.blocks):
-        p = ("decoder", "blocks", i)
-        yield p + ("snake", "alpha"), b.snake.alpha, None
-        yield from _conv(p + ("up",), b.up, "t01")
-        for j, u in enumerate(b.units):
-            yield from _unit(p + ("units", j), u)
-    yield ("decoder", "out_snake", "alpha"), dec.out_snake.alpha, None
-    yield from _conv(("decoder", "out_conv"), dec.out_conv)
+    yield from decoder_leaves(m.decoder, ("decoder",))
     for name in ("codebooks", "in_bias", "in_proj", "out_bias", "out_proj"):
         yield ("quantizer", name), getattr(q, name), None
 
@@ -171,6 +178,17 @@ def dac_tree(m: DAC) -> dict:
     return _tree(dac_leaves(m))
 
 
+def decoder_tree(dec: Decoder) -> dict:
+    """A backbone's decoder as the JAX package's ``decoder`` tree, of tensor
+    views (what ``dec_plc.msgpack`` holds)."""
+    return _tree(decoder_leaves(dec))
+
+
+def plc_head_tree(h: PLCHead) -> dict:
+    """A PLC head as the JAX package's head tree, of tensor views."""
+    return _tree(plc_head_leaves(h))
+
+
 def _template(leaves: Iterator[Leaf]) -> Dict[Path, Tuple[int, ...]]:
     return {p: _jax_shape(t, kind) for p, t, kind in leaves}
 
@@ -202,17 +220,22 @@ def _load(leaves: Iterator[Leaf], tree: Any) -> None:
 
 
 @torch.no_grad()
-def load_head_tolerant(h: Head, path: str) -> Tuple[int, dict]:
-    """Resume: load a head checkpoint into ``h`` leaf by leaf, keeping h's
-    own value for a leaf the file lacks or holds at another shape (a
-    checkpoint from before a head-schema addition, such as ``vq_counts``).
+def load_tolerant(leaves: Iterator[Leaf], path: str) -> Tuple[int, dict]:
+    """Resume: load a checkpoint into ``leaves`` one by one, keeping a
+    leaf's own value where the file lacks it or holds it at another shape (a
+    checkpoint from before a schema addition, such as ``vq_counts``).
     -> (epoch, hist)."""
-    leaves = list(head_leaves(h))
+    leaves = list(leaves)
     found, epoch, hist = load_checkpoint_tolerant(path, _template(iter(leaves)))
     for p, t, kind in leaves:
         if p in found:
             t.copy_(_to_torch(found[p], kind))
     return epoch, hist
+
+
+def load_head_tolerant(h: Head, path: str) -> Tuple[int, dict]:
+    """``load_tolerant`` of a codec-head checkpoint into ``h``."""
+    return load_tolerant(head_leaves(h), path)
 
 
 def _part(tree: Any, name: str) -> Any:
@@ -251,6 +274,22 @@ def codec_from_backbones(audio_dac: DAC, tactile_dac: DAC, head_path: str,
     return m
 
 
+def decoder_template(cfg: DacConfig) -> Dict[Path, Tuple[int, ...]]:
+    """{JAX path: JAX shape} of a decoder tree (``dec_plc.msgpack``)."""
+    with torch.device("meta"):
+        return _template(decoder_leaves(Decoder(cfg)))
+
+
+def load_decoder(path: str, cfg: DacConfig) -> Decoder:
+    """A tactile decoder from a decoder checkpoint (the inpainting decoder's
+    ``dec_plc.msgpack``, from either package), checked strictly, on the
+    CPU."""
+    tree, _, _ = load_checkpoint(path, decoder_template(cfg))
+    dec = Decoder(cfg)
+    _load(decoder_leaves(dec), tree)
+    return dec
+
+
 def load_codec(backbone_path: str, head_path: str, cfg: CodecConfig) -> CodecModules:
     """Codec from a backbone checkpoint (one module serving as both the audio
     and the tactile backbone, as the JAX evaluation scripts load it) and a
@@ -267,6 +306,15 @@ def plc_params_from_jax(tree: Any, cfg: CodecConfig, n_layers: int = 1) -> PLCMo
     _load(dac_leaves(m.tactile_dac), _part(tree, "tactile_dac"))
     _load(plc_head_leaves(m.head), _part(tree, "head"))
     return m
+
+
+def load_plc_head(path: str, cfg: CodecConfig, n_layers: int = 1) -> PLCHead:
+    """A PLC head of ``n_layers`` blocks from its checkpoint, checked
+    strictly, on the CPU."""
+    tree, _, _ = load_checkpoint(path, plc_head_template(cfg, n_layers))
+    h = PLCHead(cfg, n_layers)
+    _load(plc_head_leaves(h), tree)
+    return h
 
 
 def load_plc(backbone_path: str, head_path: str, cfg: CodecConfig,

@@ -1,15 +1,16 @@
 """Typed configuration of the codec (own copy; the port imports no JAX module).
 
 Mirrors ``DacConfig``, ``PredictorConfig``, ``RVQConfig``, ``CodecConfig``,
-``LossConfig``, ``TrainConfig``, ``PLCConfig`` and ``EvalConfig`` of the JAX
-package field for field, minus the fused-stack options
+``LossConfig``, ``TrainConfig``, ``SweepConfig``, ``PLCConfig`` and
+``EvalConfig`` of the JAX package field for field, minus the fused-stack options
 (``fused_resunits``, ``fused_resunits_b1``): the port always runs its
 channels-first stacks through its kernel K1. The layout options keep JAX's
 names and meanings: ``time_major``/``time_major_enc`` run the decoder/encoder
 in ``[B, T, C]`` (``ops/timeconv.py``), ``tail_kernel`` sends every narrow
 (C < 256) residual-unit stack through the time-major kernel K3, and
 ``poly_upsample`` runs the channels-first decoder's upsampling in polyphase
-form. All four are off by default.
+form. All four are off by default. ``asdict_jsonable`` is the JAX
+package's function of that name (a run's ``meta.json`` entries).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Tuple
 
 
 @dataclass(frozen=True)
@@ -176,6 +177,14 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class SweepConfig:
+    """Grid sweep over RVQ shapes: every (books, embed) pair of the grids."""
+
+    books_grid: Tuple[int, ...] = (1, 2, 3, 4, 6, 8)
+    embed_grid: Tuple[int, ...] = (128, 256, 512)
+
+
+@dataclass(frozen=True)
 class PLCConfig:
     """Packet-loss concealment workload: uniform packets of ``packet_tok``
     tokens each lost with ``packet_loss_prob``, or the low/medium/high burst
@@ -212,3 +221,16 @@ class EvalConfig:
     @property
     def vc_buffer_ms(self) -> float:
         return 1000.0 * self.vc_block_len / self.vc_fs_std_hz
+
+
+def asdict_jsonable(cfg: Any) -> dict:
+    """A config dataclass as nested dicts with its tuples as lists (what
+    ``json.dump`` writes), as the JAX package's function of that name."""
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        return x
+
+    return conv(dataclasses.asdict(cfg))

@@ -17,11 +17,16 @@ which computes synchronously.
 ``n`` calls each feed a tiny tanh-squashed scalar of their output into the
 next input, so they run one after the other, and the slope between two chain
 lengths is the time of one call with every fixed cost (the first enqueue,
-the final synchronisation) taken out. The JAX package needs it because its
-TPU runtime's fences return early; on the card the events are exact, and
-the slope is the time of one call in a back-to-back chain: the device's
-time where the device is the bottleneck, the host's enqueue time where the
-host is (the port enqueues each operation from Python).
+the final synchronisation) taken out. The JAX package chains the calls
+inside one ``lax.scan`` program, so its slope is the device's time of one
+call. On the card the port does the same with a CUDA graph: one chained step
+is captured after a warm-up, and a chain is ``n`` replays of it, timed by
+CUDA events. A replay issues the step's kernels with no Python between them,
+so the slope is the device's time of one call (its kernels plus the short
+gaps between them), not the host's enqueue time. A step that cannot be
+captured (a host synchronisation inside it, such as ``.item()`` or
+``.cpu()``) raises, naming the operation. On the CPU (only when the caller
+asked for it) the chain is run eagerly and timed by the host clock.
 """
 
 from __future__ import annotations
@@ -144,24 +149,77 @@ def implausible_reason(r: dict, flops: float = 0.0,
     return None
 
 
+class _LastOp:
+    """Records the last aten operation dispatched, so that a failed capture
+    can name the operation that broke it."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        rec = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                rec.last = func
+                return func(*args, **(kwargs or {}))
+
+        self.last = None
+        self.mode = Mode()
+
+
+def _capture_step(step_fn: Callable, carry: torch.Tensor, const_args: tuple,
+                  device: torch.device) -> "torch.cuda.CUDAGraph":
+    """One chained step, ``carry.copy_(step_fn(carry, *const_args))``, as a
+    CUDA graph over the static ``carry``, after three warm-up steps on a
+    side stream (libraries load, workspaces allocate). Raises RuntimeError
+    naming the last operation when the step cannot be captured."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            carry.copy_(step_fn(carry, *const_args))
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+    graph, rec = torch.cuda.CUDAGraph(), _LastOp()
+    try:
+        with torch.cuda.graph(graph), rec.mode:
+            carry.copy_(step_fn(carry, *const_args))
+    except Exception as e:
+        raise RuntimeError(
+            f"measure_device_ms: the step cannot be captured as a CUDA graph; the last "
+            f"operation dispatched was {rec.last}: {type(e).__name__}: {e}"
+            + (f" (after {e.__context__!r})" if e.__context__ is not None else "")) from e
+    return graph
+
+
 def measure_device_ms(step_fn: Callable, init, n_lo: int = 8, n_hi: int = 40,
                       reps: int = 3, const_args: tuple = (), device=None) -> dict:
-    """Time of one ``step_fn`` call in a chain, as the slope between chains
-    of ``n_lo`` and ``n_hi`` calls (see the module docstring).
+    """Device time of one ``step_fn`` call in a chain, as the slope between
+    chains of ``n_lo`` and ``n_hi`` calls (see the module docstring).
 
     ``step_fn(carry, *const_args) -> carry`` keeps the carry's shape and
-    keeps it bounded. Each chain starts from ``init`` on an idle device and
-    ends with one scalar reduced from the final carry; it is timed by CUDA
-    events on the card, by the host clock on the CPU. Returns
-    {"ms_per_call", "slope_ms", "slope_reps_ms", "slope_spread_ms",
-    "intercept_ms", "n_lo", "n_hi"}."""
+    keeps it bounded. Each chain starts from ``init`` and ends with one
+    scalar reduced from the final carry; it is timed from an idle device to
+    its end. On the card a chain is ``n`` replays of one captured step,
+    timed by CUDA events; on the CPU ``n`` eager calls, timed by the host
+    clock. Returns {"ms_per_call", "slope_ms", "slope_reps_ms",
+    "slope_spread_ms", "intercept_ms", "n_lo", "n_hi"}."""
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        carry = init.clone()
+        graph = _capture_step(step_fn, carry, const_args, dev)
 
-    def chain(n):
-        c = init
-        for _ in range(n):
-            c = step_fn(c, *const_args)
-        return c.float().abs().sum()
+        def chain(n):
+            carry.copy_(init)
+            for _ in range(n):
+                graph.replay()
+            return carry.float().abs().sum()
+    else:
+        def chain(n):
+            c = init
+            for _ in range(n):
+                c = step_fn(c, *const_args)
+            return c.float().abs().sum()
 
     def timed(n):
         chain(n)                                   # warm

@@ -37,8 +37,10 @@ measured the scan faster on its TPU.
 
 ``throughput_frames_per_sec`` times the calls by CUDA events on the card
 and by the host clock on the CPU, which computes synchronously;
-``device_time_ms`` times chains of calls the same way
-(``eval/latency.py::measure_device_ms``).
+``device_time_ms`` times chains of calls (``eval/latency.py::
+measure_device_ms``): on the card, replays of one call captured as a CUDA
+graph, so that it reads the device's time of a call as the JAX package's
+one-program chain does; on the CPU, eager calls by the host clock.
 """
 
 from __future__ import annotations
@@ -171,11 +173,15 @@ class StreamingCodec:
                 "encode_ms_per_batch": enc, "decode_ms_per_batch": dec}
 
     def device_time_ms(self, n_lo: int = 4, n_hi: int = 16, reps: int = 3) -> dict:
-        """Time of one encode and of one ``decode(z_run)`` (the tactile
-        decoder alone) in a chain of calls, by the slope between chains of
-        ``n_lo`` and ``n_hi`` (``eval/latency.py::measure_device_ms``): each
-        call's input is a fixed signal plus a tiny tanh-squashed scalar of
-        the last output. Returns {"encode": {...}, "decode": {...},
+        """Device time of one encode and of one ``decode(z_run)`` (the
+        tactile decoder alone) in a chain of calls, by the slope between
+        chains of ``n_lo`` and ``n_hi`` (``eval/latency.py::measure_device_ms``):
+        each call's input is a fixed signal plus a tiny tanh-squashed scalar
+        of the last output. On the card one chained call is captured as a
+        CUDA graph and the chains are its replays, timed by CUDA events (the
+        JAX package's one-program ``lax.scan`` chain); a call that cannot be
+        captured raises. On the CPU the calls run eagerly, timed by the host
+        clock. Returns {"encode": {...}, "decode": {...},
         "encode_frames_per_sec", "decode_frames_per_sec",
         "encode_ms_per_batch", "decode_ms_per_batch"}."""
         from . import latency

@@ -4,13 +4,14 @@ Port of the JAX package's ``plc/eval_categories.py``: for each category, every
 pair with a burst mask seeded per file (``seed * 1000 + cat_idx * 100000`` plus
 the file's 1-based index); ``eval_metrics_<cat>.csv`` per category and
 ``eval_cat_summary.json``, with the same fields and keys. The model runs on
-``device`` (``None`` means the card).
+``device`` (``None`` means the card); ``dec_ft``, an inpainting decoder,
+decodes the concealed latents only, as in ``plc/eval_uniform.py``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
@@ -20,7 +21,8 @@ from ..eval import metrics as M
 from ..eval.serving import resolve_device
 from ..utils import artifacts
 from . import masks
-from .eval_uniform import CSV_FIELDS, _mean, _refuse_unported, eval_plc_file, stockdec_summary
+from ..models.dac import Decoder
+from .eval_uniform import CSV_FIELDS, _mean, eval_plc_file, stockdec_summary
 from .model import PLCModules
 
 
@@ -31,13 +33,12 @@ def eval_plc_categories(
     pcfg: PLCConfig = PLCConfig(),
     ecfg: EvalConfig = EvalConfig(),
     seed: int = 7,
-    dec_ft=None,
+    dec_ft: Optional[Decoder] = None,
     log: Callable = print,
     device=None,
 ) -> dict:
     """Per-category metrics over all pairs, written to ``out_dir``; returns
     ``{category: summary, ..., "peak_global": peak}``."""
-    _refuse_unported(dec_ft)
     os.makedirs(out_dir, exist_ok=True)
     dev = resolve_device(device)
     modules = modules.to(dev).eval()
@@ -56,7 +57,7 @@ def eval_plc_categories(
                     rng, 1, t_lat, tps, pcfg, category=cat)[0]
 
             rows.append(eval_plc_file(modules, ap, tp, mask_fn, peak_global, ecfg,
-                                      mask_embed=pcfg.mask_embed, device=dev))
+                                      mask_embed=pcfg.mask_embed, dec_ft=dec_ft, device=dev))
         artifacts.write_csv(os.path.join(out_dir, f"eval_metrics_{cat}.csv"), rows,
                             CSV_FIELDS)
         summary[cat] = {f"mean_{k}": _mean(rows, k) for k in (

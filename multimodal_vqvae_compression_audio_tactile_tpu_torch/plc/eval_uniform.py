@@ -8,15 +8,20 @@ same mask. Writes ``eval_metrics.csv`` (the same fields) and
 ``eval_summary.json`` (the same keys).
 
 The model runs on ``device`` (``None`` means the card) in fp32; resampling,
-alignment and the metrics run on the host. Not ported yet: the inpainting
-decoder (``dec_ft``, which comes with the PLC trainer) and the example
-plots (``plot_top_k``); asking for either raises ``NotImplementedError``.
+alignment and the metrics run on the host. ``dec_ft``, an inpainting
+decoder (``plc/train.py::finetune_inpaint_decoder``, read by
+``convert.load_decoder``), decodes the concealed latents only: the zero-fill
+floor keeps the stock decoder (a receiver with no PLC), and the same
+concealed latents through the stock decoder fill ``psnr_masked_stockdec_db``
+(NaN without ``dec_ft``), which isolates the decoder's share of the gain.
+Not ported yet: the example plots (``plot_top_k``), which raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,6 +36,8 @@ from ..utils import artifacts
 from ..utils.wav_io import load_wav_mono
 from . import masks
 from . import model as plc_model
+from ..models import dac
+from ..models.dac import Decoder
 from .model import PLCModules
 
 
@@ -40,10 +47,7 @@ def _nanmean_or_nan(vals) -> float:
     return float(finite.mean()) if finite.size else float("nan")
 
 
-def _refuse_unported(dec_ft=None, plot_top_k: int = 0) -> None:
-    if dec_ft is not None:
-        raise NotImplementedError("dec_ft: the inpainting decoder comes with the PLC "
-                                  "trainer, which is not ported yet")
+def _refuse_unported(plot_top_k: int = 0) -> None:
     if plot_top_k > 0:
         raise NotImplementedError("plot_top_k: the PLC plots are not ported yet")
 
@@ -59,7 +63,7 @@ CSV_FIELDS = [
     # benefit is a measured gain, not an absolute number
     "psnr_masked_zero_db", "stsim_global_zero",
     # with an inpainting decoder (dec_ft): the same conceal fill decoded by
-    # the stock decoder (NaN when no dec_ft is in play, always here)
+    # the stock decoder (NaN when no dec_ft is in play)
     "psnr_masked_stockdec_db",
 ]
 
@@ -96,15 +100,16 @@ def eval_plc_file(
     peak_global: float,
     ecfg: EvalConfig = EvalConfig(),
     mask_embed: bool = False,
-    dec_ft=None,
+    dec_ft: Optional[Decoder] = None,
     device=None,
 ) -> dict:
     """One file through the concealment model with a deterministic mask ->
     its CSV row. ``mask_embed`` must match the run's training condition (its
-    meta.json)."""
-    _refuse_unported(dec_ft)
+    meta.json); ``dec_ft`` decodes the concealed latents in place of the
+    stock decoder."""
     dev = resolve_device(device)
     modules = modules.to(dev).eval()
+    dec_ft = dec_ft.to(dev).eval() if dec_ft is not None else None
     cfg = modules.cfg
     a24, t24n, ref24, scale = _prepare(a_path, t_path, cfg.dac.sample_rate)
 
@@ -113,7 +118,8 @@ def eval_plc_file(
     a = torch.from_numpy(a24[None]).to(dev)
     tc = torch.from_numpy(t24n[None]).to(dev)
     mk = torch.from_numpy(np.asarray(latent_mask[None], bool)).to(dev)
-    y_norm = plc_model.forward_step(modules, a, tc, mk, mask_embed=mask_embed).y_hat
+    out = plc_model.forward_step(modules, a, tc, mk, mask_embed=mask_embed, decoder=dec_ft)
+    y_norm = out.y_hat
     y0_norm = plc_model.forward_zero_fill(modules, a, tc, mk).y_hat
 
     r_a, e_a = _aligned(ref24, y_norm[0, 0].cpu().numpy() * scale, ecfg.max_align_shift)
@@ -128,12 +134,24 @@ def eval_plc_file(
     stsim_g0, _, _ = M.stsim_mel_with_mask(r0_a[0], e0_a[0], latent_mask,
                                            sr=ecfg.eval_sr)
 
+    # the decoder's share: the same concealed latents through the stock
+    # decoder; NaN without dec_ft
+    psnr_masked_stockdec = float("nan")
+    if dec_ft is not None:
+        m3 = mk[:, None, :]
+        z_filled = torch.where(m3, out.z_pred, out.z_tgt * ~m3)
+        ys = dac.decode(modules.tactile_dac, cfg.dac, z_filled)[0, 0].cpu().numpy()
+        rs_a, es_a = _aligned(ref24, np.nan_to_num(ys, nan=0.0, posinf=0.0, neginf=0.0) * scale,
+                              ecfg.max_align_shift)
+        sms = M.token_mask_to_sample_mask(latent_mask, rs_a.shape[-1])
+        psnr_masked_stockdec = M.psnr_subset_db(rs_a[0], es_a[0], sms, peak_global)
+
     ref_vec, est_vec = r_a[0], e_a[0]
     sm = M.token_mask_to_sample_mask(latent_mask, ref_vec.shape[0])
     return {
         "psnr_masked_zero_db": psnr_masked_zero,
         "stsim_global_zero": stsim_g0,
-        "psnr_masked_stockdec_db": float("nan"),
+        "psnr_masked_stockdec_db": psnr_masked_stockdec,
         "stem": os.path.splitext(os.path.basename(t_path))[0],
         "len_samples": int(ref_vec.shape[0]),
         "psnr_global_db": psnr_global,
@@ -161,13 +179,14 @@ def eval_plc_uniform(
     ecfg: EvalConfig = EvalConfig(),
     seed: int = 7,
     plot_top_k: int = 0,
-    dec_ft=None,
+    dec_ft: Optional[Decoder] = None,
     log: Callable = print,
     device=None,
 ) -> dict:
     """Metrics over all pairs -> ``eval_metrics.csv`` and ``eval_summary.json``
-    in ``out_dir``; returns the summary."""
-    _refuse_unported(dec_ft, plot_top_k)
+    in ``out_dir``; returns the summary. ``dec_ft``: an inpainting decoder
+    for the concealed path."""
+    _refuse_unported(plot_top_k)
     os.makedirs(out_dir, exist_ok=True)
     dev = resolve_device(device)
     modules = modules.to(dev).eval()
@@ -182,7 +201,7 @@ def eval_plc_uniform(
                 rng, 1, t_lat, pcfg.packet_tok, pcfg.packet_loss_prob)[0]
 
         row = eval_plc_file(modules, ap, tp, mask_fn, peak_global, ecfg,
-                            mask_embed=pcfg.mask_embed, device=dev)
+                            mask_embed=pcfg.mask_embed, dec_ft=dec_ft, device=dev)
         rows.append(row)
         log(f"[plc-eval {idx}/{len(pairs)}] {stem} "
             f"PSNR {row['psnr_global_db']:.2f} dB ST-SIM {row['stsim_global']:.4f}")

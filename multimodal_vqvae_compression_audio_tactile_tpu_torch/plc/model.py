@@ -1,4 +1,4 @@
-"""Audio -> tactile packet-loss concealment (AllPredPLC), inference half.
+"""Audio -> tactile packet-loss concealment (AllPredPLC).
 
 Port of the JAX package's ``plc/model.py``. The backbones are frozen; the
 receiver sees the tactile latent stream with its lost tokens zeroed (plus
@@ -10,11 +10,18 @@ AR roll: one attention over the 75 tokens of a second.
 
 The entry points take ``PLCModules`` (audio backbone, tactile backbone,
 head) where the JAX package takes ``CodecParams``, and a boolean loss mask
-[B, T_lat] (True = lost). They run without gradients and without dropout,
-in the inputs' dtype; in fp32 every convolution and product is true fp32
-(``core/precision.py::fp32_exact``). On a CUDA card the backbones' stacks run
-through the kernels K1 (and K3 under ``tail_kernel``), as in
-``models/allpred_ar.py``.
+[B, T_lat] (True = lost). They compute in the inputs' dtype; in fp32 every
+convolution and product is true fp32 (``core/precision.py::fp32_exact``). On
+a CUDA card the backbones' stacks run through the kernels K1 (and K3 under
+``tail_kernel``), as in ``models/allpred_ar.py``.
+
+By default they run without gradients and without dropout (serving,
+evaluation). The PLC trainer (``plc/train.py``) calls ``forward_step``,
+``forward_step_latents`` and ``predict_latents`` with ``train=True``: the
+predictor records autograd and draws its dropout from the ``dropout``
+generator, the frozen encoders still run under ``no_grad`` (K1 on the card),
+and the tactile decoder runs through its differentiable plain stacks
+(``Decoder.forward_train``).
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from torch import nn
 
 from ..core.config import CodecConfig
 from ..core.precision import fp32_exact
-from ..models.dac import DAC, init_dac_
+from ..models.dac import DAC, Decoder, init_dac_
 from ..nn.layers import CrossPredictor
 
 
@@ -58,6 +65,15 @@ class PLCModules(nn.Module):
         self.head = PLCHead(cfg, n_layers)
 
 
+def plc_of(audio_dac: DAC, tactile_dac: DAC, head: PLCHead, cfg: CodecConfig) -> PLCModules:
+    """A ``PLCModules`` around existing modules (used as they are, not
+    copied; none is allocated), as ``models/allpred_ar.py::codec_of``."""
+    with torch.device("meta"):
+        m = PLCModules(cfg, n_layers=len(head.predict_extra) + 1)
+    m.audio_dac, m.tactile_dac, m.head = audio_dac, tactile_dac, head
+    return m
+
+
 @torch.no_grad()
 def plc_head_init(cfg: CodecConfig, gen: torch.Generator, n_layers: int = 1) -> PLCHead:
     """Random head from ``gen`` with the JAX package's init distributions
@@ -85,12 +101,14 @@ def plc_init(cfg: CodecConfig, gen: torch.Generator, n_layers: int = 1) -> PLCMo
     return m
 
 
-def _apply_predictor(head: PLCHead, zt_in: torch.Tensor, qa_res: torch.Tensor) -> torch.Tensor:
+def _apply_predictor(head: PLCHead, zt_in: torch.Tensor, qa_res: torch.Tensor,
+                     dropout: Optional[torch.Generator] = None) -> torch.Tensor:
     """The (possibly stacked) predictor: every block cross-attends the running
-    tactile estimate to the audio latents."""
-    z = head.predict(zt_in, qa_res)
+    tactile estimate to the audio latents; ``dropout`` (a generator) turns
+    on the blocks' train-time dropout."""
+    z = head.predict(zt_in, qa_res, dropout=dropout)
     for blk in head.predict_extra:
-        z = blk(z, qa_res)
+        z = blk(z, qa_res, dropout=dropout)
     return z
 
 
@@ -134,12 +152,22 @@ def _fin(x: torch.Tensor) -> torch.Tensor:
 
 
 def _conceal_latents(head: PLCHead, qa: torch.Tensor, zt: torch.Tensor, m: torch.Tensor,
-                     mask_embed: bool):
+                     mask_embed: bool, dropout: Optional[torch.Generator] = None):
     """(z_filled, z_pred): the predictor's tokens at the lost positions, the
     received ones elsewhere."""
     zt_in = _receiver_view(head, zt, m, mask_embed)
-    z_pred = _apply_predictor(head, zt_in, _interp_latent(qa, zt.shape[-1]))
+    z_pred = _apply_predictor(head, zt_in, _interp_latent(qa, zt.shape[-1]), dropout)
     return torch.where(m, z_pred, zt * ~m), z_pred
+
+
+def _fill_and_decode(head: PLCHead, decoder: Decoder, cfg: CodecConfig, qa: torch.Tensor,
+                     zt_full: torch.Tensor, tc: torch.Tensor, mask_tokens: torch.Tensor,
+                     mask_embed: bool, dropout, train: bool) -> PLCOut:
+    mk = mask_tokens[:, None, :]
+    z_filled, z_pred = _conceal_latents(head, qa, zt_full, mk, mask_embed, dropout)
+    y_hat = decoder.forward_train(z_filled, cfg.dac) if train else decoder(z_filled, cfg.dac)
+    T = min(y_hat.shape[-1], tc.shape[-1])
+    return PLCOut(_fin(y_hat[..., :T]), _fin(tc[..., :T]), mk, z_pred=z_pred, z_tgt=zt_full)
 
 
 def _audio_latents(m: PLCModules, a: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
@@ -147,48 +175,48 @@ def _audio_latents(m: PLCModules, a: torch.Tensor, cfg: CodecConfig) -> torch.Te
     return qa
 
 
-@torch.no_grad()
 def forward_step(m: PLCModules, a: torch.Tensor, tc: torch.Tensor,
                  mask_tokens: torch.Tensor, mask_embed: bool = False,
-                 cfg: Optional[CodecConfig] = None) -> PLCOut:
+                 cfg: Optional[CodecConfig] = None, decoder: Optional[Decoder] = None,
+                 dropout: Optional[torch.Generator] = None, train: bool = False) -> PLCOut:
     """a, tc: [B, 1, T] waveforms; mask_tokens: [B, T_lat] bool (True = lost).
     Both backbones encode, the predictor fills the lost tokens, the tactile
-    decoder runs; outputs cut to the common length and made finite."""
+    decoder (``decoder`` in its place when given: an inpainting decoder)
+    runs; outputs cut to the common length and made finite. ``train``: see
+    the module docstring."""
     cfg = cfg or m.cfg
-    with fp32_exact(a.dtype == torch.float32):
-        qa = _audio_latents(m, a, cfg)
-        zt_full = m.tactile_dac.encoder(tc, cfg.dac)
-        mk = mask_tokens[:, None, :]
-        z_filled, z_pred = _conceal_latents(m.head, qa, zt_full, mk, mask_embed)
-        y_hat = m.tactile_dac.decoder(z_filled, cfg.dac)
-    T = min(y_hat.shape[-1], tc.shape[-1])
-    return PLCOut(_fin(y_hat[..., :T]), _fin(tc[..., :T]), mk, z_pred=z_pred,
-                  z_tgt=zt_full)
+    with torch.set_grad_enabled(train and torch.is_grad_enabled()), \
+            fp32_exact(a.dtype == torch.float32):
+        with torch.no_grad():
+            qa = _audio_latents(m, a, cfg)
+            zt_full = m.tactile_dac.encoder(tc, cfg.dac)
+        return _fill_and_decode(m.head, decoder or m.tactile_dac.decoder, cfg, qa, zt_full,
+                                tc, mask_tokens, mask_embed, dropout, train)
 
 
-@torch.no_grad()
 def forward_step_latents(head: PLCHead, tactile_dac: DAC, cfg: CodecConfig,
                          qa: torch.Tensor, zt_full: torch.Tensor, tc: torch.Tensor,
-                         mask_tokens: torch.Tensor, mask_embed: bool = False) -> PLCOut:
+                         mask_tokens: torch.Tensor, mask_embed: bool = False,
+                         dropout: Optional[torch.Generator] = None,
+                         train: bool = False) -> PLCOut:
     """``forward_step`` from precomputed backbone latents (no encoders)."""
-    with fp32_exact(zt_full.dtype == torch.float32):
-        mk = mask_tokens[:, None, :]
-        z_filled, z_pred = _conceal_latents(head, qa, zt_full, mk, mask_embed)
-        y_hat = tactile_dac.decoder(z_filled, cfg.dac)
-    T = min(y_hat.shape[-1], tc.shape[-1])
-    return PLCOut(_fin(y_hat[..., :T]), _fin(tc[..., :T]), mk, z_pred=z_pred,
-                  z_tgt=zt_full)
+    with torch.set_grad_enabled(train and torch.is_grad_enabled()), \
+            fp32_exact(zt_full.dtype == torch.float32):
+        return _fill_and_decode(head, tactile_dac.decoder, cfg, qa, zt_full, tc, mask_tokens,
+                                mask_embed, dropout, train)
 
 
-@torch.no_grad()
 def predict_latents(head: PLCHead, cfg: CodecConfig, qa: torch.Tensor,
                     zt_full: torch.Tensor, mask_tokens: torch.Tensor,
-                    mask_embed: bool = False) -> tuple:
+                    mask_embed: bool = False, dropout: Optional[torch.Generator] = None,
+                    train: bool = False) -> tuple:
     """Predictor only (no decode): (z_pred, latent_mask [B, 1, T_lat])."""
-    with fp32_exact(zt_full.dtype == torch.float32):
+    with torch.set_grad_enabled(train and torch.is_grad_enabled()), \
+            fp32_exact(zt_full.dtype == torch.float32):
         mk = mask_tokens[:, None, :]
         zt_in = _receiver_view(head, zt_full, mk, mask_embed)
-        return _apply_predictor(head, zt_in, _interp_latent(qa, zt_full.shape[-1])), mk
+        return _apply_predictor(head, zt_in, _interp_latent(qa, zt_full.shape[-1]),
+                                dropout), mk
 
 
 @torch.no_grad()

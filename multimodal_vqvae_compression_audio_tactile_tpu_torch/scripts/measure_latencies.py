@@ -13,7 +13,10 @@ times a 1 s signal at batch 1 in bf16, every stack through K1: the backbone's
 timed by CUDA events from an idle device to its end (``latency_protocol``
 "cuda_events_p50"); with ``--cpu`` by the host clock ("host_clock_p50").
 ``device_time`` is ``StreamingCodec.device_time_ms`` of the last run: the
-slope of chained calls. Without ``--cpu`` it needs a card.
+slope of chained calls, on the card replays of one call captured as a CUDA
+graph (``cuda_graph_chain_slope``: the device's time of a call, as the JAX
+package's ``device_time``), with ``--cpu`` eager calls by the host clock.
+Without ``--cpu`` it needs a card.
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ def measure(bb: DAC, cfg: CodecConfig, sweep_root: Optional[str], nq_list: Seque
             "run": name,
             "encode_device_ms": dt["encode_ms_per_batch"],
             "decode_device_ms": dt["decode_ms_per_batch"],
-            "protocol": ("cuda_events_chain_slope" if dev.type == "cuda"
+            "protocol": ("cuda_graph_chain_slope" if dev.type == "cuda"
                          else "host_clock_chain_slope"),
         }
         log(f"[lat] chained time ({name}): enc {dt['encode_ms_per_batch']:.3f} "

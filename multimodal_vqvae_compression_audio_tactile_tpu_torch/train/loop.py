@@ -26,8 +26,14 @@ follows optax:
 On the card the encoders run under ``no_grad`` through K1 (48 launches a
 step in fp32) and the tactile decoder through its plain stacks with
 autograd; everything runs in true fp32 (``fp32_exact``), as the JAX
-package trains at ``precision="highest"``. The cached-latent path
-(``train/latent_cache.py`` there) is not ported yet.
+package trains at ``precision="highest"``.
+
+The cached-latent path (``train_codec(cache=...)``): the frozen encoders'
+latents come from a ``train/latent_cache.py`` cache on the device, so a step
+runs only the AR roll and the tactile decoder (no K1). A whole epoch runs
+over a crop plan sent to the device once: the crops are gathered inside the
+epoch, no step waits for the host, and the epoch's metrics come back in one
+copy (``make_cached_epoch_fns``, the JAX package's scanned epoch).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from __future__ import annotations
 import math
 import os
 import time
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +58,7 @@ from ..models.dac import DAC
 from ..ops import rvq
 from ..utils import artifacts
 from . import checkpoint as ckpt
+from . import latent_cache as lc
 
 METRIC_KEYS = ("total", "l1", "stft", "mel", "vq_bits", "vq_bits_min", "vq_used")
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -81,13 +88,16 @@ def adamw_params(head: Head) -> List[torch.nn.Parameter]:
 
 class AdamW:
     """``optax.apply_if_finite(optax.masked(optax.chain(
-    clip_by_global_norm(clip), adamw(schedule, weight_decay=wd))))`` over
-    ``params``, all of it on the device: no host sync a step."""
+    clip_by_global_norm(clip), adamw(schedule, b1, b2, weight_decay=wd))))``
+    over ``params``, all of it on the device: no host sync a step.
+    ``betas`` default to optax's (0.9, 0.999)."""
 
     def __init__(self, params: List[torch.nn.Parameter], tcfg: TrainConfig,
-                 steps_per_epoch: int, sched_offset_steps: int = 0):
+                 steps_per_epoch: int, sched_offset_steps: int = 0,
+                 betas: Tuple[float, float] = (ADAM_B1, ADAM_B2)):
         self.params = list(params)
         self.clip, self.wd = tcfg.grad_clip, tcfg.weight_decay
+        self.b1, self.b2 = betas
         self.schedule = cosine_epoch_lr(tcfg.lr, tcfg.epochs, tcfg.lr_min_frac,
                                         steps_per_epoch)
         self.offset = sched_offset_steps
@@ -109,12 +119,13 @@ class AdamW:
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         grads = [torch.where(norm < self.clip, g, g / norm * self.clip) for g in grads]
         count = self.count + 1
-        bc1 = 1.0 - ADAM_B1 ** count.float()
-        bc2 = 1.0 - ADAM_B2 ** count.float()
+        b1, b2 = self.b1, self.b2
+        bc1 = 1.0 - b1 ** count.float()
+        bc2 = 1.0 - b2 ** count.float()
         lr = self.lr()
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            mu_new = (1.0 - ADAM_B1) * g + ADAM_B1 * mu
-            nu_new = (1.0 - ADAM_B2) * g * g + ADAM_B2 * nu
+            mu_new = (1.0 - b1) * g + b1 * mu
+            nu_new = (1.0 - b2) * g * g + b2 * nu
             u = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + ADAM_EPS) + self.wd * p
             p.copy_(torch.where(finite, p - lr * u, p))
             mu.copy_(torch.where(finite, mu_new, mu))
@@ -146,12 +157,25 @@ def step_generator(seed: int, step: int, salt: int, device) -> torch.Generator:
 def make_step_fns(cfg: CodecConfig, tcfg: TrainConfig):
     """-> (train_step(state, a, tc, base_seed, do_ema) -> metrics,
     eval_step(m, a, tc) -> metrics); metrics is one [len(METRIC_KEYS)]
-    tensor on the device. ``base_seed`` None: no dropout, reinit draws from
-    seed 0."""
+    tensor on the device. ``a`` is the audio waveform batch, or the cached
+    latents ``(qa, zt)`` (``train/latent_cache.py``): then only the AR roll
+    and the frozen tactile decoder (its plain stacks) run. ``base_seed``
+    None: no dropout, reinit draws from seed 0."""
+
+    def cached_forward(m: CodecModules, qa, zt, tc, gen) -> dict:
+        roll = allpred_ar.ar_roll_train(m.head, cfg, qa, zt, dropout=gen)
+        y_hat = m.tactile_dac.decoder.forward_train(roll.z_run, cfg.dac)
+        T = min(y_hat.shape[-1], tc.shape[-1])
+        fin = lambda x: torch.nan_to_num(x[..., :T], nan=0.0, posinf=0.0, neginf=0.0)  # noqa: E731
+        return {"y_hat": fin(y_hat), "tgt": fin(tc), "r_tokens": roll.r_tokens,
+                "codes": roll.codes, "valid": roll.valid}
 
     def loss_fn(m: CodecModules, a, tc, gen):
-        a, tc = wire.decode_wave(a), wire.decode_wave(tc)
-        out = allpred_ar.forward_step(m, a, tc, dropout=gen, cfg=cfg)
+        tc = wire.decode_wave(tc)
+        if isinstance(a, tuple):
+            out = cached_forward(m, a[0], a[1], tc, gen)
+        else:
+            out = allpred_ar.forward_step(m, wire.decode_wave(a), tc, dropout=gen, cfg=cfg)
         total, parts = codec_loss(out["y_hat"], out["tgt"], w_wav_l1=tcfg.loss.w_wav_l1,
                                   w_stft=tcfg.loss.w_stft, w_melcos=tcfg.loss.w_melcos,
                                   sr=tcfg.target_sr)
@@ -165,7 +189,7 @@ def make_step_fns(cfg: CodecConfig, tcfg: TrainConfig):
 
     def train_step(state: TrainState, a, tc, base_seed: Optional[int],
                    do_ema: bool = False) -> torch.Tensor:
-        head, dev = state.head, a.device
+        head, dev = state.head, tc.device
         gen = None if base_seed is None else step_generator(base_seed, state.step,
                                                             _DROPOUT_SALT, dev)
         head.zero_grad(set_to_none=True)
@@ -193,15 +217,63 @@ def make_step_fns(cfg: CodecConfig, tcfg: TrainConfig):
     return train_step, eval_step
 
 
+def make_cached_epoch_fns(cfg: CodecConfig, tcfg: TrainConfig, seg_tok: int):
+    """Whole epochs over a device-resident latent cache, the JAX package's
+    scanned epoch: -> (train_epoch(state, cache, idxs, tok0s, base_seed,
+    do_ema) -> mean metrics, eval_epoch(m, cache, idxs, tok0s) -> mean
+    metrics). ``idxs``/``tok0s`` are an epoch's crop plan on the device,
+    [steps, batch] (``latent_cache.crop_index_arrays``); each step gathers its
+    crops from the cache and runs the step, with no host sync between steps.
+    """
+    train_step, eval_step = make_step_fns(cfg, tcfg)
+    hop = cfg.dac.hop
+
+    def train_epoch(state: TrainState, cache: lc.LatentCache, idxs: torch.Tensor,
+                    tok0s: torch.Tensor, base_seed: Optional[int],
+                    do_ema: bool = False) -> torch.Tensor:
+        ms = []
+        for i, t0 in zip(idxs, tok0s):
+            qa, zt, tc = lc.gather_crops(cache, i, t0, seg_tok, hop)
+            ms.append(train_step(state, (qa, zt), tc, base_seed, do_ema=do_ema))
+        return torch.stack(ms).mean(0)
+
+    def eval_epoch(m: CodecModules, cache: lc.LatentCache, idxs: torch.Tensor,
+                   tok0s: torch.Tensor) -> torch.Tensor:
+        ms = []
+        for i, t0 in zip(idxs, tok0s):
+            qa, zt, tc = lc.gather_crops(cache, i, t0, seg_tok, hop)
+            ms.append(eval_step(m, (qa, zt), tc))
+        return torch.stack(ms).mean(0)
+
+    return train_epoch, eval_epoch
+
+
+def put_batch(b, dev: torch.device):
+    """A batch (numpy arrays or tensors, nested in tuples) on ``dev``; a
+    3-tuple (qa, zt, tc) of cached latents becomes ((qa, zt), tc)."""
+    if len(b) == 3:
+        b = ((b[0], b[1]), b[2])
+
+    def put(x):
+        if isinstance(x, tuple):
+            return tuple(put(v) for v in x)
+        return torch.as_tensor(x).to(dev)
+    return put(b)
+
+
 def _frozen(bb: DAC, dev: torch.device) -> DAC:
     return bb.to(dev).requires_grad_(False)
 
 
 def train_codec(cfg: CodecConfig, tcfg: TrainConfig, backbones: dict,
-                train_batches: Callable[[int], Iterable],
-                val_batches: Callable[[], Iterable], out_dir: str, seed: int = 7,
+                train_batches: Optional[Callable[[int], Iterable]],
+                val_batches: Optional[Callable[[], Iterable]], out_dir: str, seed: int = 7,
                 steps_per_epoch: Optional[int] = None, save_every: int = 1,
-                resume: bool = False, cache=None, log: Callable[[str], None] = print,
+                resume: bool = False, cache: Optional[lc.LatentCache] = None,
+                cache_train_rows: Optional[Sequence[int]] = None,
+                cache_val_rows: Optional[Sequence[int]] = None,
+                seg_tok: Optional[int] = None, val_steps: Optional[int] = None,
+                log: Callable[[str], None] = print,
                 on_epoch: Optional[Callable[[int, Head], None]] = None,
                 device=None) -> dict:
     """Train the head with the reference's artifact contract; -> hist.
@@ -209,15 +281,18 @@ def train_codec(cfg: CodecConfig, tcfg: TrainConfig, backbones: dict,
     backbones: {"audio": DAC, "tactile": DAC}, frozen here and moved to the
     device (the card unless ``device="cpu"``). ``train_batches(epoch)`` and
     ``val_batches()`` yield (a, tc) numpy batches [B, 1, T] (float, or int16
-    wire batches). Writes ``last.msgpack`` every ``save_every`` epochs and
-    at the end, ``best.msgpack`` (the best validation loss after
+    wire batches), or cached (qa, zt, tc) crops (``latent_cache.
+    cached_batches``). ``cache``: a ``LatentCache``, which switches to the
+    whole-epoch path (``make_cached_epoch_fns``) over ``seg_tok``-token crops
+    of the rows ``cache_train_rows`` (all rows when None) and a fixed
+    validation plan of ``val_steps`` steps (rows // batch when None) over
+    ``cache_val_rows`` (the train rows when None), drawn once from ``seed +
+    77``; the batch callables are not used then and may be None. Writes
+    ``last.msgpack`` every ``save_every`` epochs and at the end,
+    ``best.msgpack`` (the best validation loss after
     ``tcfg.best_after_epoch``) at the end, and ``hist.json``; the loss
     curves' ``curves.png`` is not written (no matplotlib). ``on_epoch(ep,
     head)`` is called after each epoch's bookkeeping."""
-    if cache is not None:
-        raise NotImplementedError(
-            "the cached-latent training path (train/latent_cache.py) is not ported "
-            "yet: ROADMAP.md, Queue 1 item 9")
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     head = allpred_ar.head_init(cfg, torch.Generator().manual_seed(seed))
@@ -237,7 +312,16 @@ def train_codec(cfg: CodecConfig, tcfg: TrainConfig, backbones: dict,
                 head.vq_counts.add_(100.0)
             log("[resume] pre-schema checkpoint: warm-started vq_counts=100")
 
-    if steps_per_epoch is None:
+    if cache is not None:
+        if seg_tok is None:
+            raise ValueError("train_codec: the cached path needs seg_tok")
+        rows_tr = np.asarray(cache_train_rows if cache_train_rows is not None
+                             else np.arange(cache.qa.shape[0]), np.int32)
+        rows_va = np.asarray(cache_val_rows if cache_val_rows is not None else rows_tr,
+                             np.int32)
+        if steps_per_epoch is None:
+            steps_per_epoch = max(1, rows_tr.shape[0] // tcfg.batch)
+    elif steps_per_epoch is None:
         steps_per_epoch = max(1, sum(1 for _ in train_batches(0)))
     head = head.to(dev)
     m = allpred_ar.codec_of(_frozen(backbones["audio"], dev),
@@ -249,9 +333,14 @@ def train_codec(cfg: CodecConfig, tcfg: TrainConfig, backbones: dict,
 
     state = TrainState(m, fresh_optimizer())
     train_step, eval_step = make_step_fns(cfg, tcfg)
-
-    def put(b):
-        return tuple(torch.from_numpy(np.asarray(x)).to(dev) for x in b)
+    if cache is not None:
+        cache = cache.to(dev)
+        t_tok_total = int(cache.qa.shape[-1])
+        n_val_steps = val_steps or max(1, rows_va.shape[0] // tcfg.batch)
+        # the fixed validation plan, sent to the device once
+        va_idx, va_tok0 = (torch.from_numpy(x).to(dev) for x in lc.crop_index_arrays(
+            rows_va, t_tok_total, seg_tok, tcfg.batch, n_val_steps, seed + 77, 0))
+        train_epoch, eval_epoch = make_cached_epoch_fns(cfg, tcfg, seg_tok)
 
     best_val = float("inf")
     best_head = None          # a device copy until the final write
@@ -278,15 +367,21 @@ def train_codec(cfg: CodecConfig, tcfg: TrainConfig, backbones: dict,
             for ep in range(start_epoch, tcfg.epochs + 1):
                 t0 = time.time()
                 do_ema = ep > cfg.rvq.ema_warm_epochs
-                step_metrics = [train_step(state, *put(b), base_seed, do_ema=do_ema)
-                                for b in train_batches(ep)]
-                val_metrics = [eval_step(m, *put(b)) for b in val_batches()]
+                if cache is not None:
+                    idxs, tok0s = (torch.from_numpy(x).to(dev) for x in lc.crop_index_arrays(
+                        rows_tr, t_tok_total, seg_tok, tcfg.batch, steps_per_epoch, seed, ep))
+                    train_mean = train_epoch(state, cache, idxs, tok0s, base_seed, do_ema)
+                    val_mean = eval_epoch(m, cache, va_idx, va_tok0)
+                else:
+                    step_metrics = [train_step(state, *put_batch(b, dev), base_seed,
+                                               do_ema=do_ema) for b in train_batches(ep)]
+                    val_metrics = [eval_step(m, *put_batch(b, dev)) for b in val_batches()]
+                    train_mean = (torch.stack(step_metrics).mean(0) if step_metrics
+                                  else torch.zeros(nm, device=dev))
+                    val_mean = (torch.stack(val_metrics).mean(0) if val_metrics
+                                else torch.zeros(nm, device=dev))
                 # one device-to-host copy an epoch
-                packed = torch.stack([
-                    torch.stack(step_metrics).mean(0) if step_metrics
-                    else torch.zeros(nm, device=dev),
-                    torch.stack(val_metrics).mean(0) if val_metrics
-                    else torch.zeros(nm, device=dev)]).cpu().numpy()
+                packed = torch.stack([train_mean, val_mean]).cpu().numpy()
                 sums = dict(zip(METRIC_KEYS, packed[0].tolist()))
                 for k in ("l1", "stft", "mel", "vq_bits", "vq_bits_min", "vq_used"):
                     hist[k].append(sums[k])
@@ -329,5 +424,5 @@ def train_codec(cfg: CodecConfig, tcfg: TrainConfig, backbones: dict,
         acp.close()
     artifacts.write_hist(out_dir, hist)
     log("curves.png not written: the loss curves need matplotlib "
-        "(ROADMAP.md, Queue 1 item 7)")
+        "(ROADMAP.md, Queue 1 item 11)")
     return hist

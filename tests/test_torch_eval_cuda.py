@@ -12,6 +12,11 @@ the parallel roll's codes, and the evaluators' rows card against CPU.
   codec of ``artifacts/evidence_tiny``, on the card against the CPU: the
   same counts and rates, PSNR within 1e-3 dB, ST-SIM within 1e-4, with the
   forwards' K1 launches (8 stacks a backbone forward, 12 a proposed one).
+- F5: ``StreamingCodec.device_time_ms`` of a full-width bf16 batch-1 encode
+  (the scan and the parallel roll) within 0.9-2.0x the kernel time that
+  torch.profiler records for one encode: the chain of CUDA-graph replays
+  reads the device's time, where an eager chain of Python calls read the
+  host's (4-7x the kernel sum at batch 1).
 
 Marked ``cuda``: each test skips without a card. The file imports neither jax
 nor the JAX package; on a machine with the card run it without the
@@ -138,3 +143,53 @@ def test_evaluators_on_card_match_cpu(evidence_rows):
         _same_row(dac_g[q], dac_c[q])
     for g, c in zip(prop_g, prop_c):
         _same_row(g, c)
+
+
+def _kernel_ms(fn) -> float:
+    """The summed CUDA kernel time of one call of ``fn`` (torch.profiler;
+    copies and memsets left out), after a warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and not e.name.lower().startswith(("memcpy",
+                                                                               "memset"))]
+    assert us, "torch.profiler recorded no kernel"
+    return sum(us) / 1e3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parallel_roll", [False, True], ids=["scan", "parallel_roll"])
+def test_chained_encode_time_is_the_device_time(cuda, parallel_roll):
+    m = allpred_ar.codec_init(CodecConfig().with_rvq(8, 128), torch.Generator().manual_seed(0))
+    sc = StreamingCodec(m, batch=1, device=cuda, parallel_roll=parallel_roll)
+    rng = np.random.default_rng(3)
+    a, tc = (sc._put((0.1 * rng.standard_normal((1, 1, sc.frame))).astype(np.float32))
+             for _ in range(2))
+    kernels = _kernel_ms(lambda: sc._encode(sc.modules, a, tc, n_books_use=sc.n_books_use,
+                                            cfg=sc.cfg))
+    chained = sc.device_time_ms(n_lo=4, n_hi=16, reps=2)["encode"]["ms_per_call"]
+    assert 0.9 * kernels <= chained <= 2.0 * kernels, (chained, kernels)
+
+
+@pytest.mark.cuda
+def test_a_step_that_cannot_be_captured_raises(cuda):
+    """A host synchronisation inside the chained step is named, not timed
+    eagerly instead."""
+    from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval import latency
+    x = torch.ones(64, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA graph.*local_scalar_dense"):
+        latency.measure_device_ms(lambda c: c * float(c.sum().item() > 0), x, 2, 4, 1,
+                                  device=cuda)
+    # a step long enough (a 1024^3 product, ~40 us) for the slope to stand
+    # clear of the replays' jitter
+    w = torch.randn(1024, 1024, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    r = latency.measure_device_ms(lambda c, k: torch.tanh(c @ k), torch.ones(1024, 1024,
+                                                                           device=cuda),
+                                  4, 20, 2, const_args=(w / 32,), device=cuda)
+    assert r["ms_per_call"] > 0 and (r["n_lo"], r["n_hi"]) == (4, 20)

@@ -66,6 +66,7 @@ for name in list(sys.modules):
 sys.meta_path.insert(0, Refuse())
 
 import numpy as np, torch
+torch.set_num_threads(1)        # beside other test workers, a thread per core is slower
 import {PORT}.convert, {PORT}._build
 from {PORT}.core.config import CodecConfig
 from {PORT}.models import allpred_ar
@@ -103,6 +104,28 @@ with tempfile.TemporaryDirectory() as d:
                             val_batches=lambda: iter([(a, t)]), out_dir=d, device="cpu",
                             log=lambda s: None)
     assert len(hist["train"]) == 1 and os.path.exists(os.path.join(d, "last.msgpack"))
+import {PORT}.scripts.build_latent_cache, {PORT}.scripts.train_sweep
+import {PORT}.scripts.train_plc, {PORT}.scripts.train_plc_decft, {PORT}.scripts.eval_plc
+from {PORT}.core.config import PLCConfig, SweepConfig
+from {PORT}.train import latent_cache, sweep
+from {PORT}.plc import train as plc_train
+bb = {{"audio": m.audio_dac, "tactile": m.tactile_dac}}
+with tempfile.TemporaryDirectory() as d:
+    cache = latent_cache.build_latent_cache(bb, CodecConfig().tiny(), [(a, t)], device="cpu")
+    latent_cache.save_cache(os.path.join(d, "c.npz"), cache)
+    cache = latent_cache.load_cache(os.path.join(d, "c.npz"), device="cpu")
+    rows = sweep.run_sweep(CodecConfig().tiny(), TrainConfig(epochs=1, batch=1),
+                           SweepConfig((1,), (16,)), bb, None, None, d, cache=cache,
+                           seg_tok=10, device="cpu", log=lambda s: None)
+    assert rows[0]["run"] == "rvqB1_K16"
+    tcfg = TrainConfig(epochs=1, batch=1, seg_sec=0.2, best_after_epoch=0)
+    plc_train.train_plc(CodecConfig().tiny(), tcfg, PLCConfig(), bb, lambda ep: iter([(a, t)]),
+                        lambda: iter([(a, t)]), d, device="cpu", log=lambda s: None)
+    plc_train.finetune_inpaint_decoder(CodecConfig().tiny(), tcfg, PLCConfig(), bb,
+                                       plc.head, lambda ep: iter([(a, t)]),
+                                       lambda: iter([(a, t)]), d, device="cpu",
+                                       log=lambda s: None)
+    assert os.path.exists(os.path.join(d, "dec_plc.msgpack"))
 assert not any(n.split(".")[0] in BLOCK for n in sys.modules)
 print("ISOLATED_OK", len(streams[0]))
 """

@@ -153,11 +153,24 @@ def test_summaries_match_jax(runs):
 
 
 def test_unported_options_raise(tmp_path):
+    """The example plots are not ported and raise; ``dec_ft`` (the inpainting
+    decoder, once refused here) is taken: with the stock decoder as
+    ``dec_ft`` the rows equal those without it, and the stock-decoder
+    column equals the concealed one."""
     m = convert.load_plc(BACKBONE, HEADS["plc_uniform"], CodecConfig().tiny(), 2)
     val = _held_out(pair_stems, split_items)
-    with pytest.raises(NotImplementedError, match="dec_ft"):
-        eval_uniform.eval_plc_uniform(m, val, str(tmp_path), dec_ft={}, device="cpu")
     with pytest.raises(NotImplementedError, match="plot"):
         eval_uniform.eval_plc_uniform(m, val, str(tmp_path), plot_top_k=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="dec_ft"):
-        eval_plc_categories(m, val, str(tmp_path), dec_ft={}, device="cpu")
+    plain = eval_uniform.eval_plc_uniform(m, val, str(tmp_path / "a"), device="cpu",
+                                          log=lambda *_: None)
+    stock = eval_uniform.eval_plc_uniform(m, val, str(tmp_path / "b"), device="cpu",
+                                          dec_ft=m.tactile_dac.decoder, log=lambda *_: None)
+    for k, v in plain.items():
+        if k in ("mean_psnr_masked_stockdec_db", "dec_ft_gain_masked_db"):
+            assert math.isnan(v) and not math.isnan(stock[k]), k
+        else:
+            assert stock[k] == v, k
+    assert stock["mean_psnr_masked_stockdec_db"] == stock["mean_psnr_masked_db"]
+    cats = eval_plc_categories(m, val[:1], str(tmp_path / "c"), dec_ft=m.tactile_dac.decoder,
+                               device="cpu", log=lambda *_: None)
+    assert all(cats[c]["dec_ft_gain_masked_db"] == 0.0 for c in CATS)

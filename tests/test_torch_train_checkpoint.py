@@ -149,18 +149,30 @@ def test_jax_checkpoint_resumes_in_port(codecs, tmp_path, pre_schema):
 
 
 def test_cache_path_is_not_ported(codecs, tmp_path):
+    """The cached-latent path, once refused here, is ported: ``cache=``
+    needs ``seg_tok`` and then trains on the cache (its parity with the JAX
+    package: ``tests/test_torch_latent_cache.py``)."""
+    from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import latent_cache as lc
     jcfg, _, m = codecs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loop.train_codec(port_cfg(jcfg), TrainConfig(), {"audio": m.audio_dac,
-                                                         "tactile": m.tactile_dac},
-                         None, None, str(tmp_path), cache=object(), device="cpu")
+    cfg, bb = port_cfg(jcfg), {"audio": m.audio_dac, "tactile": m.tactile_dac}
+    cache = lc.build_latent_cache(bb, cfg, iter([batch(50)]), device="cpu")
+    with pytest.raises(ValueError, match="seg_tok"):
+        loop.train_codec(cfg, TrainConfig(), bb, None, None, str(tmp_path), cache=cache,
+                         device="cpu")
+    hist = loop.train_codec(cfg, TrainConfig(epochs=1, batch=2), bb, None, None,
+                            str(tmp_path), cache=cache, seg_tok=10, device="cpu",
+                            log=lambda s: None)
+    assert len(hist["train"]) == 1 and np.isfinite(hist["train"][0])
+    assert os.path.exists(tmp_path / "last.msgpack")
 
 
 def _script(*args):
+    # one torch thread: beside the other test workers, a process that spins
+    # a thread per core is slowed tenfold (as tests/test_torch_plc.py notes)
     return subprocess.run([sys.executable, "-m",
                            "multimodal_vqvae_compression_audio_tactile_tpu_torch.scripts"
                            ".train_codec", *args], cwd=ROOT, capture_output=True,
-                          text=True, timeout=300)
+                          text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
 
 
 def test_train_codec_script_trains_and_resumes(tmp_path):

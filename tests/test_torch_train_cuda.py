@@ -9,6 +9,11 @@
   step on the CPU: loss within 1e-5, every head gradient within 1e-4 of
   its leaf's largest element.
 - ``train_codec`` on the card, tiny, two epochs: last/best/hist written.
+- The latent cache: its build launches K1 (the two frozen encoders' 8 fp32
+  stacks: 48 launches a batch); a cached train step and a cached eval step
+  launch no kernel at all, and the cached step on the card equals the same
+  step on the CPU (loss within 1e-5, gradients within 1e-4 of a leaf's
+  largest); ``train_codec(cache=...)`` on the card writes the run.
 
 Marked ``cuda``: each test skips without a card. The file imports neither
 jax nor the JAX package; on the machine with the card run it without the
@@ -29,7 +34,8 @@ from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.config import (
     CodecConfig, DacConfig, PredictorConfig, RVQConfig, TrainConfig)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.precision import fp32_exact
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.models import allpred_ar
-from multimodal_vqvae_compression_audio_tactile_tpu_torch.ops import resunit, resunit_tm
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.ops import resunit, resunit_tm, vq
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import latent_cache as lc
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import loop
 
 CFG = CodecConfig(dac=DacConfig().tiny(), predictor=PredictorConfig(dim=64, heads=8),
@@ -136,3 +142,70 @@ def test_train_codec_on_card_writes_the_run(cuda, tmp_path):
     for f in ("last.msgpack", "best.msgpack", "hist.json"):
         assert os.path.exists(tmp_path / f)
 
+
+
+def _launches() -> tuple:
+    return resunit.launches, resunit_tm.launches, vq.launches
+
+
+def _cached_step(m, cache, dev, launched):
+    m = copy.deepcopy(m).to(dev)
+    m.audio_dac.requires_grad_(False)
+    m.tactile_dac.requires_grad_(False)
+    cache = cache.to(dev)
+    tcfg = TrainConfig(epochs=2, batch=2)
+    state = loop.TrainState(m, loop.AdamW(loop.adamw_params(m.head), tcfg, 1))
+    step, eval_step = loop.make_step_fns(CFG, tcfg)
+    qa, zt, tc = lc.gather_crops(cache, torch.tensor([1, 0], device=dev),
+                                 torch.tensor([2, 0], device=dev), 10, CFG.dac.hop)
+    before = _launches()
+    with fp32_exact(dev.type == "cuda"):
+        metrics = step(state, (qa, zt), tc, None, do_ema=True)
+        with torch.no_grad():
+            eval_step(m, (qa, zt), tc)
+    launched.append([x - y for x, y in zip(_launches(), before)])
+    grads = {n: p.grad.cpu() for n, p in m.head.named_parameters() if p.grad is not None}
+    return metrics.cpu(), grads
+
+
+@pytest.mark.cuda
+def test_cache_build_launches_k1_and_a_cached_step_none(cuda):
+    m = allpred_ar.codec_init(CFG, torch.Generator().manual_seed(4))
+    batches = [_batch(10), _batch(11)]
+    bb = {"audio": copy.deepcopy(m.audio_dac), "tactile": copy.deepcopy(m.tactile_dac)}
+    before = resunit.launches
+    cache = lc.build_latent_cache(bb, CFG, iter(batches))
+    assert resunit.launches - before == 2 * 2 * 4 * 6       # 2 batches, 2 encoders x 4 stacks
+    assert cache.qa.device.type == "cuda" and cache.qa.shape == (4, 64, 15)
+    ref_cache = lc.build_latent_cache({k: copy.deepcopy(v) for k, v in bb.items()}, CFG,
+                                      iter(batches), device="cpu")
+    assert _rel(cache.qa, ref_cache.qa) <= 1e-5 and _rel(cache.zt, ref_cache.zt) <= 1e-5
+    launched = []
+    got, g_got = _cached_step(m, cache, cuda, launched)
+    ref, g_ref = _cached_step(m, cache, torch.device("cpu"), launched)
+    assert launched[0] == [0, 0, 0]
+    np.testing.assert_allclose(float(got[0]), float(ref[0]), rtol=1e-5)
+    assert g_got.keys() == g_ref.keys()
+    for n in g_ref:
+        err = float((g_got[n] - g_ref[n]).abs().max() / g_ref[n].abs().max().clamp_min(1e-30))
+        assert err <= 1e-4, (n, err)
+
+
+@pytest.mark.cuda
+def test_train_codec_on_the_cache_on_card(cuda, tmp_path):
+    m = allpred_ar.codec_init(CFG, torch.Generator().manual_seed(5))
+    bb = {"audio": m.audio_dac, "tactile": m.tactile_dac}
+    cache = lc.build_latent_cache(bb, CFG, iter([_batch(20), _batch(21), _batch(22)]))
+    before = _launches()
+    hist = loop.train_codec(CFG_EMA1, TrainConfig(epochs=2, batch=2, best_after_epoch=0), bb,
+                            None, None, str(tmp_path), cache=cache, cache_train_rows=[0, 1, 2, 3],
+                            cache_val_rows=[4, 5], seg_tok=10, val_steps=1, log=lambda s: None)
+    assert [x - y for x, y in zip(_launches(), before)] == [0, 0, 0]
+    assert hist["ema"] == [0.0, 1.0] and all(np.isfinite(hist["train"] + hist["val"]))
+    for f in ("last.msgpack", "best.msgpack", "hist.json"):
+        assert os.path.exists(tmp_path / f)
+
+
+def _rel(got, ref):
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-12))
