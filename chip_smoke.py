@@ -172,7 +172,35 @@ random ones made from ``--seed``. Phases, one line of numbers each:
    the stock decoder; ``eval_plc_uniform`` on the 4 validation pairs with
    that decoder as ``dec_ft`` gives the zero-fill columns of the run
    without it and another concealed column. Reported: the step by CUDA
-   events and device time, the peak memory, the phase's wall seconds.
+   events and device time, the peak memory, the phase's wall seconds;
+17. pretrain: backbone pretraining (``train/pretrain_backbone.py``) at the
+   full width of ``DacConfig()``, ``TrainConfig`` as the port's script sets
+   it (batch 8, 1 s, lr 2e-4, clip 3.0, betas (0.8, 0.99)), on batches of
+   ``stream_pretrain_batches`` (int16 wire, ``--seed``) with 2 validation
+   batches from seed + 10000, under ``build/chip_smoke_pretrain/``. Both
+   recipes resume from r5's ``backbone_best.msgpack`` (with the
+   ``vq_counts.msgpack`` beside it) at epoch 1 where the checkout has it,
+   else from a seeded init written as a checkpoint. Probes on one batch:
+   a reconstruction, a GAN warm-up and a GAN step each launch K1, K2 and
+   K3 0 times, the eval step K1 48 times (the encoder's and the decoder's
+   4 fp32 stacks) and its loss lies within 1e-6 relative of the same step
+   through the plain stacks; after the reconstruction step every backbone
+   leaf has a finite gradient that is not all zero, after the GAN step
+   every discriminator leaf too (but the output biases, whose hinge
+   gradient is exactly 0 while every logit lies inside the margin), and a
+   warm-up step leaves the discriminators as they were. Runs:
+   ``pretrain_backbone`` for 2 epochs of 3 steps with quantizer dropout,
+   (a) reconstruction, (b) GAN with ``start_epoch=2``: K1 only in the eval
+   steps (192 launches a run), finite losses, the discriminators
+   bit-equal to their init after epoch 1 and moved after epoch 2,
+   ``last``/``best``/``vq_counts``/``disc_last`` read back equal to the
+   live state at their epochs, ``hist.json`` with the JAX package's keys;
+   the GAN run's backbone reloads through ``convert.load_dac`` and serves a
+   bf16 ``encode_quantized`` and ``decode`` (56 K1 launches), finite.
+   Reported: each step kind by CUDA events and by device time with its
+   busy share, the reconstruction step by kernel kind, K1's share of the
+   eval step, the peak memory, steps/s and the data wait a step over each
+   run, a backbone checkpoint's write seconds and the phase's wall seconds.
 
 Phase 13 also gates F5: the bf16 encode's chained ``device_time_ms`` (CUDA
 graph replays, ``eval/latency.py::measure_device_ms``) through the scan and
@@ -196,6 +224,7 @@ import faulthandler
 import json
 import importlib.util
 import os
+from itertools import islice
 import re
 import shutil
 import subprocess
@@ -207,20 +236,25 @@ import torch
 
 from multimodal_vqvae_compression_audio_tactile_tpu_torch import _build
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.convert import (
-    dac_tree, decoder_leaves, head_template, head_tree, load_codec, load_dac, load_decoder,
-    load_plc, load_plc_head, plc_head_template, plc_head_tree)
+    dac_template, dac_tree, decoder_leaves, disc_template, disc_tree, head_template, head_tree,
+    load_codec, load_dac, load_decoder, load_plc, load_plc_head, plc_head_template,
+    plc_head_tree)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.config import (
-    CodecConfig, EvalConfig, LossConfig, PLCConfig, RVQConfig, SweepConfig, TrainConfig)
+    CodecConfig, DacConfig, EvalConfig, GanConfig, LossConfig, PLCConfig, RVQConfig,
+    SweepConfig, TrainConfig)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.precision import fp32_exact
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.data import (
     SegmentDataset, batch_iterator, pair_stems, split_items)
-from multimodal_vqvae_compression_audio_tactile_tpu_torch.data.synth import make_synth_corpus
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.data import wire
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.data.synth import (
+    make_synth_corpus, stream_pretrain_batches)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval import dac_baseline, proposed, vcpwq
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval import metrics
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval.prepared import (
     equal_length_batches, prepare_pairs)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval.serving import (
     StreamingCodec, StreamingConcealer)
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.losses import gan as gan_losses
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.models import allpred_ar, dac
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.ops import resunit, resunit_tm, rvq, vq
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc import masks
@@ -236,6 +270,7 @@ from multimodal_vqvae_compression_audio_tactile_tpu_torch.scripts.measure_latenc
     measure as measure_latencies)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import checkpoint, latent_cache
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import loop as train_loop
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import pretrain_backbone as pb
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.train.sweep import run_sweep
 
 # Published dense peaks of one H100 SXM at 700 W: fp32 outside the tensor
@@ -1705,6 +1740,226 @@ def plc_train_phase(ctx: dict, seed: int) -> None:
         wall_s=time.perf_counter() - t_phase)
 
 
+PRETRAIN_DIR = os.path.join(REPO, "build", "chip_smoke_pretrain")
+R5_COUNTS = os.path.join(ARTIFACTS, "r5", "vq_counts.msgpack")
+PRETRAIN_STEPS, PRETRAIN_VAL = 3, 2
+
+
+def pretrain_start(cfg: DacConfig, seed: int) -> tuple:
+    """(the checkpoint both recipes resume from, what it is): r5's backbone
+    with its usage counts beside it, or a seeded init written as a
+    checkpoint (no counts: the loop warm-starts them at 100)."""
+    if os.path.exists(R5[0]) and os.path.exists(R5_COUNTS):
+        return R5[0], "artifacts/r5 backbone_best (trained) and its vq_counts"
+    bb = dac.init_dac_(dac.DAC(cfg), torch.Generator().manual_seed(seed))
+    path = os.path.join(PRETRAIN_DIR, "start", "backbone.msgpack")
+    checkpoint.save_checkpoint(path, dac_tree(bb), 0)
+    return path, f"random, seed {seed}"
+
+
+def bad_grads(named, may_be_zero=lambda name: False) -> list:
+    """Leaves whose gradient is missing, not finite or all zero (unless
+    ``may_be_zero(name)``)."""
+    return [n for n, p in named if p.grad is None or not bool(torch.isfinite(p.grad).all())
+            or not (may_be_zero(n) or bool(p.grad.abs().sum() > 0))]
+
+
+def output_bias(name: str) -> bool:
+    """A discriminator's output bias: it shifts the real and the fake logits
+    alike, so its hinge gradient, (fake logits above -1 - real logits below
+    1) / count, is exactly 0 while every logit lies inside the margin, as at
+    a fresh discriminator."""
+    return name.endswith(".post.b")
+
+
+def host_equal(tree, live) -> bool:
+    live = checkpoint.to_host(live)
+    return all(np.array_equal(tree_at(tree, p), tree_at(live, p))
+               for p, _ in checkpoint.flatten(live))
+
+
+def pretrain_probes(cfg, tcfg, gcfg, start: str, x: torch.Tensor, seed: int) -> dict:
+    """The step functions of both recipes on one batch: launches, gradients,
+    the eval step through K1 against the plain stacks, times, profile,
+    memory, a checkpoint write."""
+    sched = pb.warmup_cosine_lr(tcfg.lr, 100, 1, tcfg.lr_min_frac)
+    counts = (torch.from_numpy(checkpoint.load_vq_counts(R5_COUNTS, (cfg.n_codebooks,
+                                                                     cfg.codebook_size)))
+              if start == R5[0] else torch.full((cfg.n_codebooks, cfg.codebook_size), 100.0))
+    rm = load_dac(start, cfg).cuda()
+    rs = pb.PretrainState(rm, pb.generator_optimizer(rm, tcfg, sched), vq_counts=counts.cuda())
+    gm = load_dac(start, cfg).cuda()
+    d = gan_losses.disc_init(gcfg, torch.Generator().manual_seed(seed + 1)).cuda()
+    gs = pb.PretrainState(gm, pb.generator_optimizer(gm, tcfg, sched), d=d,
+                          d_opt=pb.disc_optimizer(d, tcfg, gcfg))
+    recon_step, eval_step = pb.make_pretrain_step(cfg, tcfg)
+    gan_step, warmup_step, _ = pb.make_gan_pretrain_step(cfg, tcfg, gcfg)
+    out = {}
+    with fp32_exact():
+        torch.cuda.reset_peak_memory_stats()
+        loss, n_recon, _ = counted(lambda: recon_step(rs, x, None))
+        bad = bad_grads(rs.m.named_parameters())
+        gate(not bad, f"pretrain: backbone gradients not finite or all zero after one "
+                      f"reconstruction step: {bad}")
+        total, n_eval, _ = counted(lambda: eval_step(rs.m, x))
+        with plain_stacks():
+            plain, n_plain, _ = counted(lambda: eval_step(rs.m, x))
+        eval_rel = abs(float(total) - float(plain)) / abs(float(plain))
+        gate(eval_rel <= 1e-6, f"pretrain: eval loss through K1 against the plain stacks "
+                               f"{eval_rel:.3e}")
+        d0 = [p.detach().clone() for p in d.parameters()]
+        wl, n_warm, _ = counted(lambda: warmup_step(gs, x, None))
+        gate(all(torch.equal(a, b) for a, b in zip(d0, d.parameters())),
+             "pretrain: a warm-up step moved the discriminators")
+        gl, n_gan, _ = counted(lambda: gan_step(gs, x, None))
+        bad = bad_grads(d.named_parameters(), output_bias) + bad_grads(gs.m.named_parameters())
+        gate(not bad, f"pretrain: gradients not finite or all zero after one GAN step: {bad}")
+        out["disc_output_bias_grads"] = [float(p.grad) for n, p in d.named_parameters()
+                                         if output_bias(n)]
+        zero = expect(False)
+        gate(n_recon == zero and n_warm == zero and n_gan == zero and n_plain == zero,
+             f"pretrain: a train step launched a kernel: {n_recon} {n_warm} {n_gan} {n_plain}")
+        gate(n_eval == expect(False, k1=8), f"pretrain: eval step launches {n_eval}")
+        losses = [loss, total, wl, gl]
+        gate(all(bool(torch.isfinite(v).all()) for v in losses),
+             f"pretrain: probe losses not finite: {losses}")
+        calls = {"recon_step": lambda: recon_step(rs, x, None),
+                 "warmup_step": lambda: warmup_step(gs, x, None),
+                 "gan_step": lambda: gan_step(gs, x, None),
+                 "eval_step": lambda: eval_step(rs.m, x)}
+        for name, fn in calls.items():
+            out[f"{name}_ms"] = cuda_ms(fn, reps=3, warm=1)
+        prof = profile_calls("pretrain", calls)
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    for name, p in prof.items():
+        out[f"{name}_device_ms"] = p["device_ms"]
+        out[f"{name}_busy_share"] = p["busy_share"]
+    k1 = prof["eval_step"]["by_kind"].get("K1 resunit_stack", {"ms": 0.0})["ms"]
+    out["eval_step_k1_share"] = k1 / prof["eval_step"]["device_ms"]
+    out["recon_step_by_kind"] = prof["recon_step"]["by_kind"]
+    path = os.path.join(PRETRAIN_DIR, "probe_write.msgpack")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(path, dac_tree(rs.m), 0)
+    out["checkpoint_write_s"] = time.perf_counter() - t0
+    out["checkpoint_bytes"] = os.path.getsize(path)
+    os.remove(path)
+    out.update(launches_recon_step=n_recon, launches_warmup_step=n_warm,
+               launches_gan_step=n_gan, launches_eval_step=n_eval,
+               eval_rel_err_k1_vs_plain=eval_rel, eval_bit_equal_k1_vs_plain=eval_rel == 0.0,
+               probe_losses=[v.tolist() for v in losses])
+    return out
+
+
+def pretrain_run(cfg, tcfg, gcfg, start: str, stream, val_set, seed: int, name: str) -> dict:
+    """One recipe's ``pretrain_backbone`` (resumed from ``start`` at epoch 1,
+    ``PRETRAIN_STEPS`` steps an epoch), its launches and what its files
+    hold against the live state at their epochs."""
+    seen: dict = {}
+
+    def on_epoch(ep, st):
+        seen[ep] = {"model": checkpoint.snapshot(dac_tree(st.m)),
+                    "counts": None if st.vq_counts is None else st.vq_counts.clone(),
+                    "disc": None if st.d is None else checkpoint.snapshot(disc_tree(st.d)),
+                    "t": time.perf_counter() - t0}
+
+    waits: list = []
+
+    def timed(batches):             # the host's wait for each batch
+        for _ in range(PRETRAIN_STEPS):
+            t = time.perf_counter()
+            b = next(batches)
+            waits.append(time.perf_counter() - t)
+            yield b
+
+    out_dir = os.path.join(PRETRAIN_DIR, name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist, n_run, _ = counted(lambda: pb.pretrain_backbone(
+        cfg, tcfg, lambda ep: timed(stream), lambda: iter(val_set),
+        out_dir, seed=seed, steps_per_epoch=PRETRAIN_STEPS, gan=gcfg, resume_from=start,
+        start_epoch=1, on_epoch=on_epoch, log=lambda s: print(f"[pretrain] {s}", flush=True)))
+    run_s = time.perf_counter() - t0
+    want = dict(expect(False, k1=8 * PRETRAIN_VAL * tcfg.epochs))
+    gate(n_run == want, f"pretrain {name}: run launches {n_run}, expected {want} "
+                        "(K1 in the eval steps only)")
+    gate(all(np.isfinite(hist["train"] + hist["val"])) and len(hist["train"]) == tcfg.epochs,
+         f"pretrain {name}: hist {hist}")
+    files = {}
+    for fname in ("last", "best"):
+        tree, epoch, fhist = checkpoint.load_checkpoint(os.path.join(out_dir, f"{fname}.msgpack"),
+                                                        dac_template(cfg))
+        same = host_equal(tree, seen[epoch]["model"])
+        files[fname] = {"epoch": epoch, "equal_live": same}
+        gate(same and set(fhist) == {"train", "val"},
+             f"pretrain {name}: {fname}.msgpack (epoch {epoch}) differs from the live backbone "
+             f"or its hist keys {sorted(fhist)}")
+    if gcfg is None:
+        shape = (cfg.n_codebooks, cfg.codebook_size)
+        tree, epoch, _ = checkpoint.load_checkpoint(os.path.join(out_dir, "vq_counts.msgpack"),
+                                                    {(): shape})
+        same = np.array_equal(tree, seen[epoch]["counts"].cpu().numpy())
+        files["vq_counts"] = {"epoch": epoch, "equal_live": same}
+        gate(same, f"pretrain {name}: vq_counts.msgpack differs from the live counts")
+    else:
+        tree, epoch, _ = checkpoint.load_checkpoint(os.path.join(out_dir, "disc_last.msgpack"),
+                                                    disc_template(gcfg))
+        same = host_equal(tree, seen[epoch]["disc"])
+        files["disc_last"] = {"epoch": epoch, "equal_live": same}
+        gate(same, f"pretrain {name}: disc_last.msgpack differs from the live discriminators")
+        d0 = checkpoint.to_host(disc_tree(gan_losses.disc_init(
+            gcfg, torch.Generator().manual_seed(seed + 1))))
+        frozen = host_equal(d0, seen[1]["disc"])
+        moved = not host_equal(d0, seen[2]["disc"])
+        files["disc_frozen_epoch1_moved_epoch2"] = frozen and moved
+        gate(frozen and moved, f"pretrain {name}: discriminators frozen in epoch 1 {frozen}, "
+                               f"moved in epoch 2 {moved}")
+    with open(os.path.join(out_dir, "hist.json")) as f:
+        gate(set(json.load(f)) == {"train", "val"}, f"pretrain {name}: hist.json keys")
+    steps = tcfg.epochs * PRETRAIN_STEPS
+    return {"hist": hist, "launches_run": n_run, "run_wall_s": run_s,
+            "steps_per_s": steps / run_s, "epoch_end_s": [seen[e]["t"] for e in sorted(seen)],
+            "data_wait_ms_per_step": 1e3 * float(np.mean(waits)),
+            "data_wait_ms_max": 1e3 * float(np.max(waits)),
+            "files": files, "out_dir": out_dir}
+
+
+def pretrain_phase(seed: int) -> None:
+    """Backbone pretraining at full width, both recipes; see the module
+    docstring (phase 17)."""
+    t_phase = time.perf_counter()
+    cfg = DacConfig()
+    tcfg = TrainConfig(epochs=2, batch=8, seg_sec=1.0, lr=2e-4, grad_clip=3.0,
+                       adam_b1=0.8, adam_b2=0.99)
+    shutil.rmtree(PRETRAIN_DIR, ignore_errors=True)
+    start, weights = pretrain_start(cfg, seed)
+    stream = stream_pretrain_batches(tcfg.batch, seg=tcfg.seg, sr=cfg.sample_rate, seed=seed,
+                                     wire_i16=True)
+    val_set = list(islice(stream_pretrain_batches(
+        tcfg.batch, seg=tcfg.seg, sr=cfg.sample_rate, seed=seed + 10_000, prefetch=1,
+        wire_i16=True), PRETRAIN_VAL))
+    x = torch.from_numpy(next(stream)).cuda()
+    probes = pretrain_probes(cfg, tcfg, GanConfig(), start, x, seed)
+    runs = {"recon": pretrain_run(cfg, tcfg, None, start, stream, val_set, seed, "recon"),
+            "gan": pretrain_run(cfg, tcfg, GanConfig(start_epoch=2), start, stream, val_set,
+                                seed, "gan")}
+    # the hand-off: the pretrained backbone serves a bf16 encode and decode
+    bb = load_dac(os.path.join(runs["gan"]["out_dir"], "best.msgpack"), cfg).cuda()
+    xb = wire.decode_wave(torch.from_numpy(val_set[0][:1]).cuda()).to(torch.bfloat16)
+    (zq, codes), n_enc, _ = counted(lambda: dac.encode_quantized(bb, cfg, xb))
+    y, n_dec, _ = counted(lambda: dac.decode(bb, cfg, zq))
+    want = expect(True, k1=4)
+    gate(n_enc == want and n_dec == want and y.shape == (1, 1, tcfg.seg)
+         and bool(torch.isfinite(y).all()) and codes.shape == (1, 75, cfg.n_codebooks),
+         f"pretrain: reloaded backbone's bf16 encode / decode: launches {n_enc} / {n_dec}, "
+         f"output {tuple(y.shape)} finite {bool(torch.isfinite(y).all())}")
+    say("pretrain", weights=weights, batch=tcfg.batch, seg=tcfg.seg, epochs=tcfg.epochs,
+        steps_per_epoch=PRETRAIN_STEPS, val_batches=PRETRAIN_VAL, **probes,
+        runs={k: {kk: vv for kk, vv in v.items() if kk != "out_dir"} for k, v in runs.items()},
+        handoff_launches={"encode": n_enc, "decode": n_dec},
+        wall_s=time.perf_counter() - t_phase)
+
+
 def tree_at(tree, path):
     for k in path:
         tree = tree[k]
@@ -1827,6 +2082,7 @@ def main() -> int:
     ctx = train_phase(args.seed, a, tc)
     cached_train_phase(ctx, args.seed)
     plc_train_phase(ctx, args.seed)
+    pretrain_phase(args.seed)
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} gate(s) failed", file=sys.stderr)
         return 1

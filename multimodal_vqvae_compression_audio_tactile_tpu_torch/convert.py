@@ -13,8 +13,9 @@ Layouts that differ between the two packages:
 Every conversion into the port is strict: a missing, extra or mis-shaped
 leaf raises; only a training resume (``load_tolerant``) keeps a leaf the
 checkpoint lacks, as the JAX package's resume does. ``head_tree``,
-``dac_tree``, ``decoder_tree`` and ``plc_head_tree`` go the other way, a
-module to its JAX-layout tree, for the checkpoint writer.
+``dac_tree``, ``decoder_tree``, ``plc_head_tree`` and ``disc_tree`` go the
+other way, a module to its JAX-layout tree, for the checkpoint writer. The
+discriminators' 2D conv weights are OIHW in both packages.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .core.config import CodecConfig, DacConfig
+from .core.config import CodecConfig, DacConfig, GanConfig
+from .losses.gan import Conv2d, Discriminators
 from .models.allpred_ar import CodecModules, Head, codec_of
 from .models.dac import DAC, Decoder
 from .nn.layers import CrossPredictor
@@ -121,6 +123,26 @@ def plc_head_leaves(h: PLCHead) -> Iterator[Leaf]:
         yield from _predictor(("predict_extra", i), blk)
 
 
+def disc_leaves(d: Discriminators) -> Iterator[Leaf]:
+    """(JAX path, tensor, layout) for every parameter of the discriminators:
+    ``mpd/<i>/layers/<j>``, ``mpd/<i>/post`` and ``mstftd/<i>/{pre, mid/<j>,
+    tail, post}``, each a ``w`` and a ``b``."""
+    def conv(p: Path, c: Conv2d) -> Iterator[Leaf]:
+        yield p + ("w",), c.w, None
+        yield p + ("b",), c.b, None
+
+    for i, m in enumerate(d.mpd):
+        for j, layer in enumerate(m.layers):
+            yield from conv(("mpd", i, "layers", j), layer)
+        yield from conv(("mpd", i, "post"), m.post)
+    for i, m in enumerate(d.mstftd):
+        yield from conv(("mstftd", i, "pre"), m.pre)
+        for j, layer in enumerate(m.mid):
+            yield from conv(("mstftd", i, "mid", j), layer)
+        yield from conv(("mstftd", i, "tail"), m.tail)
+        yield from conv(("mstftd", i, "post"), m.post)
+
+
 def _jax_shape(t: torch.Tensor, kind: Optional[str]) -> Tuple[int, ...]:
     s = tuple(t.shape)
     if kind == "t01":
@@ -189,6 +211,12 @@ def plc_head_tree(h: PLCHead) -> dict:
     return _tree(plc_head_leaves(h))
 
 
+def disc_tree(d: Discriminators) -> dict:
+    """The discriminators as the JAX package's ``d_params`` tree, of tensor
+    views."""
+    return _tree(disc_leaves(d))
+
+
 def _template(leaves: Iterator[Leaf]) -> Dict[Path, Tuple[int, ...]]:
     return {p: _jax_shape(t, kind) for p, t, kind in leaves}
 
@@ -209,6 +237,12 @@ def plc_head_template(cfg: CodecConfig, n_layers: int = 1) -> Dict[Path, Tuple[i
     """{JAX path: JAX shape} of a PLC-head tree of ``n_layers`` blocks."""
     with torch.device("meta"):
         return _template(plc_head_leaves(PLCHead(cfg, n_layers)))
+
+
+def disc_template(gcfg: GanConfig) -> Dict[Path, Tuple[int, ...]]:
+    """{JAX path: JAX shape} of a discriminator tree, for the strict loader."""
+    with torch.device("meta"):
+        return _template(disc_leaves(Discriminators(gcfg)))
 
 
 @torch.no_grad()
@@ -252,13 +286,42 @@ def params_from_jax(tree: Any, cfg: CodecConfig) -> CodecModules:
     return m
 
 
+def dac_from_jax(tree: Any, cfg: DacConfig) -> DAC:
+    """A backbone from the JAX package's parameter tree (numpy-convertible
+    leaves), checked strictly against ``cfg``, on the CPU."""
+    m = DAC(cfg)
+    _load(dac_leaves(m), tree)
+    return m
+
+
 def load_dac(path: str, cfg: DacConfig) -> DAC:
     """A backbone from its checkpoint, checked strictly against ``cfg``, on
     the CPU."""
     tree, _, _ = load_checkpoint(path, dac_template(cfg))
-    m = DAC(cfg)
+    return dac_from_jax(tree, cfg)
+
+
+def load_dac_checkpoint(m: DAC, path: str) -> Tuple[int, dict]:
+    """Load a backbone checkpoint into ``m`` where it lives, strictly;
+    -> (epoch, hist)."""
+    tree, epoch, hist = load_checkpoint(path, dac_template(m.encoder.cfg))
     _load(dac_leaves(m), tree)
-    return m
+    return epoch, hist
+
+
+def disc_from_jax(tree: Any, gcfg: GanConfig) -> Discriminators:
+    """Discriminators from the JAX package's ``d_params`` tree, checked
+    strictly against ``gcfg``, on the CPU."""
+    d = Discriminators(gcfg)
+    _load(disc_leaves(d), tree)
+    return d
+
+
+def load_disc(path: str, gcfg: GanConfig) -> Discriminators:
+    """The discriminators of a ``disc_last.msgpack``, checked strictly
+    against ``gcfg``, on the CPU."""
+    tree, _, _ = load_checkpoint(path, disc_template(gcfg))
+    return disc_from_jax(tree, gcfg)
 
 
 def codec_from_backbones(audio_dac: DAC, tactile_dac: DAC, head_path: str,

@@ -1,8 +1,8 @@
 """Typed configuration of the codec (own copy; the port imports no JAX module).
 
 Mirrors ``DacConfig``, ``PredictorConfig``, ``RVQConfig``, ``CodecConfig``,
-``LossConfig``, ``TrainConfig``, ``SweepConfig``, ``PLCConfig`` and
-``EvalConfig`` of the JAX package field for field, minus the fused-stack options
+``LossConfig``, ``GanConfig``, ``TrainConfig``, ``SweepConfig``, ``PLCConfig``
+and ``EvalConfig`` of the JAX package field for field, minus the fused-stack options
 (``fused_resunits``, ``fused_resunits_b1``): the port always runs its
 channels-first stacks through its kernel K1. The layout options keep JAX's
 names and meanings: ``time_major``/``time_major_enc`` run the decoder/encoder
@@ -147,6 +147,26 @@ class LossConfig:
     eps: float = 1e-7
     w_plc_latent: float = 0.0
     w_plc_masked: float = 0.0
+
+
+@dataclass(frozen=True)
+class GanConfig:
+    """Adversarial backbone pretraining (``losses/gan.py``): multi-period
+    discriminators over ``periods``, multi-scale STFT discriminators over
+    ``fft_sizes``, hinge (or ``"lsgan"``) adversarial loss at ``w_adv`` and
+    relative L1 feature matching at ``w_fm``; the discriminators' own AdamW at
+    ``disc_lr`` with betas (``disc_b1``, ``disc_b2``). Epochs before
+    ``start_epoch`` train the reconstruction alone."""
+
+    periods: Tuple[int, ...] = (2, 3, 5, 7, 11)
+    fft_sizes: Tuple[int, ...] = (256, 512, 1024)
+    loss_kind: str = "hinge"
+    w_adv: float = 0.1
+    w_fm: float = 0.5
+    disc_lr: float = 1e-4
+    disc_b1: float = 0.8
+    disc_b2: float = 0.99
+    start_epoch: int = 1
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,8 @@
 """Synthetic paired audio/vibrotactile corpus generator (numpy and scipy).
 
-The JAX package's ``data/synth.py`` (``synth_pair``, ``make_synth_corpus``),
-copied so that the same seed writes the same WAVs: stem-matched mono pairs,
+The JAX package's ``data/synth.py`` (``synth_pair``, ``make_synth_corpus``,
+``stream_pretrain_batches``), copied so that the same seed writes the same
+WAVs and streams the same batches: stem-matched mono pairs,
 audio at 44.1 kHz (PCM_16, peak-normalised) and tactile at 3 kHz (float, raw
 amplitudes whose corpus peak is the reference corpus' 4.3857), rendered from
 a shared sparse impact train through per-modality modal resonator banks with
@@ -192,6 +193,46 @@ def synth_pair(rng: np.random.Generator, dur_sec: float = 2.0,
                          GLOBAL_TACTILE_PEAK))
     tact = tact / (np.abs(tact).max() + 1e-9) * peak
     return audio, tact
+
+
+def stream_pretrain_batches(batch: int, seg: int = 24000, sr: int = 24000,
+                            seed: int = 7, mix_audio: float = 0.5,
+                            prefetch: int = 4, wire_i16: bool = False):
+    """Endless fresh synthetic waveform batches [B, 1, seg] float32 (int16
+    wire batches with ``wire_i16``, ``data/wire.py``) for backbone
+    pretraining, which so never reuses a sample. Each element is rendered
+    at ``sr`` from the audio side of a pair with probability ``mix_audio``,
+    else from its tactile side resampled from 3 kHz (``dsp/resample.py``),
+    then a random ``seg`` crop. The numpy stream of ``seed`` is the JAX
+    package's: the audio elements are its bits, the tactile ones its values
+    to the resampler's fp32 rounding. A daemon thread renders ``prefetch``
+    batches ahead of the consumer; it starts on the first ``next``."""
+    import queue
+    import threading
+
+    from ..dsp.resample import resample
+    from .segments import sanitize_wave_np
+    from .wire import encode_wave_i16
+
+    q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+
+    def worker():
+        rng = np.random.default_rng(seed)
+        dur = seg / sr + 0.25
+        while True:
+            xs = np.empty((batch, 1, seg), np.float32)
+            for b in range(batch):
+                a, t = synth_pair(rng, dur_sec=dur, sr_audio=sr,
+                                  material=int(rng.integers(len(_CLASSES))))
+                w = a if rng.random() < mix_audio else resample(t[None], 3000, sr).numpy()[0]
+                w = sanitize_wave_np(w)
+                st = int(rng.integers(0, max(1, w.shape[-1] - seg)))
+                xs[b, 0] = w[st: st + seg]
+            q.put(encode_wave_i16(xs) if wire_i16 else xs)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        yield q.get()
 
 
 def make_synth_corpus(root: str, n_pairs: int = 12, dur_sec: float = 2.0,

@@ -20,10 +20,13 @@ With ``tail_kernel`` every narrow stack (C < 256) goes through
 either layout, between transposes in the channels-first one. A block's
 trailing snake runs fused into its stack.
 
-``Decoder.forward_train`` is the differentiable decode of the codec head's
-training: channels-first, every stack through the plain version
-``resunit_stack_ref`` (the kernels have no backward, and the JAX package's
-training keeps its XLA path too).
+``Decoder.forward_train`` and ``Encoder.forward_train`` are the
+differentiable decode and encode of training: channels-first, every stack
+through the plain version ``resunit_stack_ref`` (the kernels have no
+backward, and the JAX package's training keeps its XLA path too).
+``Quantizer.quantize_train`` is the quantize of backbone pretraining, with
+its losses and quantizer dropout, and ``quantizer_dead_code_reinit`` its
+dead-code reseeding.
 
 ``encode``, ``decode`` and ``encode_quantized`` are the JAX package's
 functional entry points over one backbone (its ``dac.encode``,
@@ -45,6 +48,7 @@ from ..core.precision import fp32_exact
 from ..ops import timeconv as tc
 from ..ops.resunit import DILATIONS, ResUnit, Snake, resunit_stack, resunit_stack_ref
 from ..ops.resunit_tm import resunit_stack_tm
+from ..ops.rvq import track_counts_and_reinit
 
 NARROW = 256     # stacks narrower than this take K3 under ``tail_kernel``
 
@@ -119,8 +123,13 @@ class EncoderBlock(nn.Module):
         self.snake = Snake(d)
         self.down = nn.Conv1d(d, 2 * d, 2 * r)
 
-    def forward(self, x: torch.Tensor, cfg: DacConfig) -> torch.Tensor:
-        x = _unit_stack(self.units, x, cfg, post_alpha=self.snake.alpha)
+    def forward(self, x: torch.Tensor, cfg: DacConfig, stack=None) -> torch.Tensor:
+        """``stack`` (default: ``_unit_stack``'s choice of kernel) runs the
+        residual units."""
+        if stack is not None:
+            x = stack(self.units, x, DILATIONS, post_alpha=self.snake.alpha)
+        else:
+            x = _unit_stack(self.units, x, cfg, post_alpha=self.snake.alpha)
         # kernel 2r, stride r, symmetric padding ceil(r/2): length T / r
         return conv1d(self.down, x, stride=self.r, padding=(self.r + 1) // 2)
 
@@ -152,14 +161,27 @@ class Encoder(nn.Module):
         return x.shape[-1] % hop == 0 and all(
             b.down.weight.shape[-1] == 2 * b.r for b in self.blocks)
 
-    def forward(self, x: torch.Tensor, cfg: Optional[DacConfig] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cfg: Optional[DacConfig] = None,
+                stack=None) -> torch.Tensor:
+        """``stack`` (default: the layout and kernel ``cfg`` picks) runs every
+        block's residual units, channels-first."""
         cfg = cfg or self.cfg
-        if cfg.time_major_enc and self.time_major_ok(x):
+        if stack is None and cfg.time_major_enc and self.time_major_ok(x):
             return self.forward_tm(x, cfg)
         y = conv1d(self.in_conv, x, padding=3)
         for block in self.blocks:
-            y = block(y, cfg)
+            y = block(y, cfg, stack=stack)
         return conv1d(self.out_conv, self.out_snake(y), padding=1)
+
+    def forward_train(self, x: torch.Tensor, cfg: Optional[DacConfig] = None) -> torch.Tensor:
+        """The training encode, differentiable: channels-first, every stack
+        through ``resunit_stack_ref``. The time-major layout and
+        ``tail_kernel`` are serving options, refused here."""
+        cfg = cfg or self.cfg
+        if cfg.time_major_enc or cfg.tail_kernel:
+            raise ValueError("forward_train runs the channels-first encoder: "
+                             "time_major_enc and tail_kernel are serving options")
+        return self(x, cfg, stack=resunit_stack_ref)
 
     def forward_tm(self, x: torch.Tensor, cfg: DacConfig) -> torch.Tensor:
         y = tc.conv_tm(self.in_conv, x.transpose(1, 2))         # [B, T, C]
@@ -292,6 +314,46 @@ class Quantizer(nn.Module):
         codes = torch.stack(idxs, dim=1).reshape(B, T, use).to(torch.int32)
         return zq, codes
 
+    def quantize_train(self, z: torch.Tensor, nq_per_example: Optional[torch.Tensor] = None,
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The training quantize: z [B, C, T] -> (z_q [B, C, T] in z's dtype,
+        codes [B, T, n] int32, commitment loss, codebook loss), through every
+        book, with the JAX package's stop-gradient pairings: the commitment
+        loss trains the projection, the codebook loss the books, the
+        straight-through ``e + sg(q - e)`` carries z_q's gradient to the
+        encoder, and the residual chain subtracts each book's output without
+        a gradient. ``nq_per_example`` [B] (quantizer dropout): example b's
+        z_q sums only its first ``nq_per_example[b]`` books, and both losses
+        count only those (example, book) pairs, renormalised by their share.
+        The values equal ``quantize``'s; ``quantize`` itself stays the
+        serving path, which autograd must not train."""
+        n_books = self.codebooks.shape[0]
+        B, C, T = z.shape
+        x = z.transpose(1, 2).reshape(B * T, C).float()
+        w_tok = None if nq_per_example is None else \
+            nq_per_example.repeat_interleave(T).float()
+        residual, zq, idxs = x, torch.zeros_like(x), []
+        commit = codebk = x.new_zeros(())
+        for i in range(n_books):
+            e = residual @ self.in_proj[i] + self.in_bias[i]            # [N, cd]
+            cb = self.codebooks[i]
+            idx = torch.argmax(_l2n(e.detach()) @ _l2n(cb.detach()).T, dim=1)
+            q_cd = cb[idx]
+            if w_tok is None:
+                active, frac = 1.0, 1.0
+            else:
+                hit = (i < w_tok).float()
+                active, frac = hit[:, None], hit.mean() + 1e-9
+            commit = commit + torch.mean(active * (e - q_cd.detach()) ** 2) / frac
+            codebk = codebk + torch.mean(active * (e.detach() - q_cd) ** 2) / frac
+            z_b = (e + (q_cd - e).detach()) @ self.out_proj[i] + self.out_bias[i]
+            residual = residual - z_b.detach()
+            zq = zq + active * z_b
+            idxs.append(idx)
+        zq = zq.reshape(B, T, C).transpose(1, 2).to(z.dtype)
+        codes = torch.stack(idxs, dim=1).reshape(B, T, n_books).to(torch.int32)
+        return zq, codes, commit, codebk
+
     def dequantize(self, codes: torch.Tensor) -> torch.Tensor:
         """codes [B, T, n_use] -> z_q [B, C, T] (fp32)."""
         n_use = codes.shape[-1]
@@ -308,6 +370,39 @@ class DAC(nn.Module):
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
         self.quantizer = Quantizer(cfg)
+
+
+@torch.no_grad()
+def quantizer_dead_code_reinit(q: Quantizer, counts: torch.Tensor, z: torch.Tensor,
+                               gen: Optional[torch.Generator], decay: float = 0.99,
+                               dead_frac: float = 0.1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """EMA usage tracking and dead-code reseeding of the backbone RVQ ->
+    (codebooks [n, K, cd], counts [n, K]), the JAX package's
+    ``quantizer_dead_code_reinit``. ``q`` holds the books after this step's
+    update, ``z`` [B, C, T] the step's latents (before the update). Each
+    book's EMA cluster sizes and reseeds go through ``ops/rvq.py::
+    track_counts_and_reinit`` on that book's factorized features of the
+    batch (all-zero counts adopt the batch's counts), drawing from ``gen``
+    book by book; the residual chain advances with the codes picked before
+    the reseed. ``gen`` cannot reproduce the JAX package's threefry draws:
+    the reseeded codes are the same, their new values are not."""
+    n_books, K, _ = q.codebooks.shape
+    B, C, T = z.shape
+    residual = z.detach().transpose(1, 2).reshape(B * T, C).float()
+    N = B * T
+    ones = residual.new_ones(N)
+    books, new_counts = [], []
+    for i in range(n_books):
+        e = residual @ q.in_proj[i] + q.in_bias[i]
+        cb = q.codebooks[i]
+        idx = torch.argmax(_l2n(e) @ _l2n(cb).T, dim=1)
+        batch_counts = residual.new_zeros(K).index_add_(0, idx, ones)
+        b, c = track_counts_and_reinit(cb, counts[i], e, batch_counts, gen, decay=decay,
+                                       dead_frac=dead_frac, uniform_share=N / K)
+        books.append(b)
+        new_counts.append(c)
+        residual = residual - (cb[idx] @ q.out_proj[i] + q.out_bias[i])
+    return torch.stack(books), torch.stack(new_counts)
 
 
 @torch.no_grad()

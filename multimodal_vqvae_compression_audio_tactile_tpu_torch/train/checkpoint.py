@@ -10,7 +10,9 @@ does.
 
 ``save_checkpoint`` writes the same payload through ``utils/msgpack_write.py``
 (to a temporary file, then ``os.replace``), so the JAX package's loader reads
-the port's checkpoints; ``AsyncCheckpointer`` writes them from a thread.
+the port's checkpoints; ``AsyncCheckpointer`` writes them from a thread. A
+bare array is a tree too: backbone pretraining's ``vq_counts.msgpack`` holds
+the ``[n_books, K]`` usage counts as its model (``load_vq_counts``).
 """
 
 from __future__ import annotations
@@ -86,6 +88,13 @@ def load_checkpoint(path: str, template: Optional[Dict[Path, Tuple[int, ...]]] =
         check_tree(tree, template)
     hist_json = payload.get("hist_json") or ""
     return tree, int(payload.get("epoch", 0)), json.loads(hist_json) if hist_json else {}
+
+
+def load_vq_counts(path: str, shape: Tuple[int, int]) -> np.ndarray:
+    """The ``[n_books, K]`` array of a ``vq_counts.msgpack``, checked
+    strictly against ``shape``."""
+    tree, _, _ = load_checkpoint(path, {(): tuple(shape)})
+    return np.array(tree, np.float32)
 
 
 def load_checkpoint_tolerant(path: str, template: Dict[Path, Tuple[int, ...]],

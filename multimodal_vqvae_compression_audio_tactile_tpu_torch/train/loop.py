@@ -90,16 +90,22 @@ class AdamW:
     """``optax.apply_if_finite(optax.masked(optax.chain(
     clip_by_global_norm(clip), adamw(schedule, b1, b2, weight_decay=wd))))``
     over ``params``, all of it on the device: no host sync a step.
-    ``betas`` default to optax's (0.9, 0.999)."""
+    ``betas`` default to optax's (0.9, 0.999). ``schedule`` maps the
+    optimizer's count (plus ``sched_offset_steps``) to the learning rate: the
+    per-epoch cosine of ``cosine_epoch_lr`` over ``steps_per_epoch`` when
+    None. ``weight_decay`` defaults to ``tcfg.weight_decay``."""
 
     def __init__(self, params: List[torch.nn.Parameter], tcfg: TrainConfig,
-                 steps_per_epoch: int, sched_offset_steps: int = 0,
-                 betas: Tuple[float, float] = (ADAM_B1, ADAM_B2)):
+                 steps_per_epoch: Optional[int] = None, sched_offset_steps: int = 0,
+                 betas: Tuple[float, float] = (ADAM_B1, ADAM_B2),
+                 schedule: Optional[Callable] = None,
+                 weight_decay: Optional[float] = None):
         self.params = list(params)
-        self.clip, self.wd = tcfg.grad_clip, tcfg.weight_decay
+        self.clip = tcfg.grad_clip
+        self.wd = tcfg.weight_decay if weight_decay is None else weight_decay
         self.b1, self.b2 = betas
-        self.schedule = cosine_epoch_lr(tcfg.lr, tcfg.epochs, tcfg.lr_min_frac,
-                                        steps_per_epoch)
+        self.schedule = schedule if schedule is not None else cosine_epoch_lr(
+            tcfg.lr, tcfg.epochs, tcfg.lr_min_frac, steps_per_epoch)
         self.offset = sched_offset_steps
         dev = self.params[0].device
         self.count = torch.zeros((), dtype=torch.int64, device=dev)
@@ -108,6 +114,14 @@ class AdamW:
 
     def lr(self) -> torch.Tensor:
         return self.schedule(self.count + self.offset)
+
+    @torch.no_grad()
+    def reset_moments(self) -> None:
+        """Zero the moments and keep the count, so the schedule goes on where
+        it was (the JAX package's ``reset_moments``, which keeps optax's
+        integer leaves)."""
+        for t in self.mu + self.nu:
+            t.zero_()
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:

@@ -126,6 +126,18 @@ with tempfile.TemporaryDirectory() as d:
                                        lambda: iter([(a, t)]), d, device="cpu",
                                        log=lambda s: None)
     assert os.path.exists(os.path.join(d, "dec_plc.msgpack"))
+import {PORT}.scripts.pretrain_backbone, {PORT}.core.rng, {PORT}.losses.gan
+from {PORT}.core.config import DacConfig, GanConfig
+from {PORT}.data.synth import stream_pretrain_batches
+from {PORT}.train import pretrain_backbone as pb
+xb = [next(stream_pretrain_batches(1, seg=640, seed=0, wire_i16=True))]
+for gan in (None, GanConfig(periods=(2,), fft_sizes=(64,))):
+    with tempfile.TemporaryDirectory() as d:
+        hist = pb.pretrain_backbone(DacConfig().tiny(), TrainConfig(epochs=1, batch=1),
+                                    lambda ep: iter(xb), lambda: iter(xb), d, gan=gan,
+                                    device="cpu", log=lambda s: None)
+        assert np.isfinite(hist["train"][0]) and os.path.exists(os.path.join(
+            d, "vq_counts.msgpack" if gan is None else "disc_last.msgpack"))
 assert not any(n.split(".")[0] in BLOCK for n in sys.modules)
 print("ISOLATED_OK", len(streams[0]))
 """
