@@ -200,7 +200,45 @@ random ones made from ``--seed``. Phases, one line of numbers each:
    Reported: each step kind by CUDA events and by device time with its
    busy share, the reconstruction step by kernel kind, K1's share of the
    eval step, the peak memory, steps/s and the data wait a step over each
-   run, a backbone checkpoint's write seconds and the phase's wall seconds.
+   run, a backbone checkpoint's write seconds and the phase's wall seconds;
+18. demo: the port's ``scripts/demo_end_to_end.py`` at the full width of
+   ``CodecConfig()`` under ``build/chip_smoke_demo/``, its depth cut
+   (``DEMO_FLAGS``): 12 synthetic two-second pairs (10 train, 2 held out;
+   the JAX default is 48), one pretraining epoch (30), one epoch a sweep
+   head (30) over books (2, 8) x 128 (the default grid is 2, 6, 10), two
+   PLC epochs (10) of which the first is the latent regression, batch 4
+   (8), the heads on the latent cache (``--cached-heads``), both PLC modes,
+   seed 7. Where the checkout has ``artifacts/r5/backbone_best.msgpack`` it
+   is placed as the demo's ``backbone/best.msgpack`` and stage 2 reuses it;
+   else stage 2 pretrains. Gates: every file of the reference contract
+   (``contract_files``; the PNGs only where matplotlib is installed, else
+   the demo's "not drawn" lines); every checkpoint reads back strictly
+   through ``convert`` (the usage counts through ``train/checkpoint.py``);
+   the combined JSON has the key tree of the committed
+   ``artifacts/evidence_tiny`` JSON, its rows' rates are their
+   configurations' nominal rates, and every metric and PLC summary value is
+   finite (the stock-decoder columns are NaN without an inpainting
+   decoder); each stage's modules and tensors lie on the card; K1's
+   launches a call (``K1_PER_CALL``: 48 a pretraining eval batch and a
+   cache-build batch, 216 a backbone-evaluator call, 72 a proposed forward
+   and an example, 120 a PLC-evaluated file, 0 in every train step and
+   cached epoch) and the number of calls of each kind; the PSNR that
+   ``example_signals`` gives each example equals, within 1e-3 dB, the
+   proposed evaluator's for that file alone, and their mean the best run's
+   row. Reported: each stage's wall seconds, K1 launches, K1's time (CUDA
+   events around each stack outside a graph capture) and peak memory;
+19. evidence: the port's ``evidence_tiny check`` on the card (tiny config,
+   under ``build/chip_smoke_evidence/``): ``_compare`` against
+   ``MANIFEST.json`` finds no mismatch at its own tolerances (PSNR 0.2 dB,
+   ST-SIM 0.01, kbps 1e-6), the regenerated corpus is byte-equal to the
+   committed one, and K1's launches a call and the calls are gated as in
+   phase 18 (nothing trains: the backbone is reused, the sweep's runs are
+   trained, the PLC heads resume at their last epoch). Reported: the
+   largest deviation from the MANIFEST by tolerance class and the stages.
+
+The card's machine has no matplotlib: there the demo draws no figure and
+says so in one line a set of figures; the model work behind each figure
+runs all the same.
 
 Phase 13 also gates F5: the bf16 encode's chained ``device_time_ms`` (CUDA
 graph replays, ``eval/latency.py::measure_device_ms``) through the scan and
@@ -272,6 +310,12 @@ from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import checkpoin
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import loop as train_loop
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import pretrain_backbone as pb
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.train.sweep import run_sweep
+from multimodal_vqvae_compression_audio_tactile_tpu_torch import convert
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval import plots
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc import eval_categories, eval_uniform
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.scripts import (
+    demo_end_to_end, demo_eval_only, evidence_tiny)
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.utils import artifacts
 
 # Published dense peaks of one H100 SXM at 700 W: fp32 outside the tensor
 # cores, bf16 in them, and HBM3 bandwidth.
@@ -1960,6 +2004,401 @@ def pretrain_phase(seed: int) -> None:
         wall_s=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------- 18-19: demo, evidence
+
+DEMO_DIR = os.path.join(REPO, "build", "chip_smoke_demo")
+EVIDENCE_DIR = os.path.join(REPO, "build", "chip_smoke_evidence")
+# the demo at full width, its depth cut: 12 two-second pairs (10 train, 2
+# held out), one pretraining and one head epoch, two PLC epochs of which the
+# first is the latent regression, batch 4, two sweep runs
+DEMO_FLAGS = ["--pairs", "12", "--dur-sec", "2", "--pretrain-epochs", "1",
+              "--codec-epochs", "1", "--plc-epochs", "2", "--plc-latent-epochs", "1",
+              "--batch", "4", "--books-grid", "2,8", "--embed-grid", "128", "--cached-heads",
+              "--plc-category", "--plc-eval-files", "2", "--seed", "7"]
+K1_FP32 = 6            # K1 launches of one fp32 stack of 3 units
+# K1 launches a call, by what the call is (the wrappers' counts; a stack of
+# the encoder or the decoder is K1_FP32 launches in fp32)
+K1_PER_CALL = {
+    "pretrain_train_step": 0, "pretrain_eval_step": 8 * K1_FP32,
+    "cache_build_batch": 8 * K1_FP32,
+    "sweep_train_epoch": 0, "sweep_eval_epoch": 0,
+    "plc_train_step": 0, "plc_eval_step": 0, "plc_latent_step": 0,
+    "backbone_forward": 8 * K1_FP32, "proposed_forward": 12 * K1_FP32,
+    "example": 12 * K1_FP32, "plc_file": 20 * K1_FP32,
+}
+
+
+class Tee:
+    """Standard output copied into a buffer (the demo's printed lines)."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def k1_now() -> int:
+    return resunit.launches
+
+
+def on_card(x, seen=None) -> list:
+    """What in ``x`` (modules, tensors, and what they are held in) lies off
+    the card: -> descriptions."""
+    seen = set() if seen is None else seen
+    if id(x) in seen:
+        return []
+    seen.add(id(x))
+    if isinstance(x, torch.nn.Module):
+        return [f"{type(x).__name__}.{n}" for n, t in
+                list(x.named_parameters()) + list(x.named_buffers()) if t.device.type != "cuda"]
+    if isinstance(x, torch.Tensor):
+        return [] if x.device.type == "cuda" else [f"tensor {tuple(x.shape)}"]
+    if isinstance(x, dict):
+        return [b for v in x.values() for b in on_card(v, seen)]
+    if isinstance(x, (list, tuple)):
+        return [b for v in x for b in on_card(v, seen)]
+    if type(x).__name__.endswith("State"):
+        return [b for v in vars(x).values() for b in on_card(v, seen)]
+    return []
+
+
+class DemoProbe:
+    """K1 launches and devices of the demo's calls. Each watched function
+    records, per call, the K1 launches between its start and its end (the
+    difference of the counter, which is set to 0 once before the demo) and
+    what of its arguments lies off the card after it; each stage, its
+    launches, wall seconds and peak memory."""
+
+    def __init__(self):
+        self.calls: dict = {}
+        self.stages: dict = {}
+        self.off_card: list = []
+        self.patches: list = []
+        self.k1_events: list = []
+
+    def time_stacks(self) -> None:
+        """CUDA events around every stack the model sends to K1's wrapper
+        (``dac.resunit_stack``) outside a CUDA-graph capture: their sum over
+        a stage is K1's time there (the latency map's graph replays are not
+        in it)."""
+        fn = dac.resunit_stack
+        self.patches.append((dac, "resunit_stack", fn))
+
+        def timed(*a, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                return fn(*a, **kw)
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            self.k1_events.append(ev)
+            return out
+        dac.resunit_stack = timed
+
+    def record(self, kind: str, fn, per: int = 1):
+        def wrapped(*a, **kw):
+            k0 = k1_now()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.calls.setdefault(kind, []).append((k1_now() - k0) / per)
+            self.off_card += [f"{kind}: {b}" for b in on_card((a, kw))]
+            return out
+        return wrapped
+
+    def watch(self, mod, name: str, kind: str, per=None) -> None:
+        fn = getattr(mod, name)
+        self.patches.append((mod, name, fn))
+        if per is None:
+            setattr(mod, name, self.record(kind, fn))
+        else:       # per(args, kwargs) -> the count of units of a call
+            def wrapped(*a, **kw):
+                return self.record(kind, fn, per(a, kw))(*a, **kw)
+            setattr(mod, name, wrapped)
+
+    def watch_factory(self, mod, name: str, kinds: tuple) -> None:
+        """``mod.name`` returns step functions: each is recorded under its kind."""
+        factory = getattr(mod, name)
+        self.patches.append((mod, name, factory))
+
+        def wrapped(*a, **kw):
+            return tuple(self.record(k, f) for k, f in zip(kinds, factory(*a, **kw)))
+        setattr(mod, name, wrapped)
+
+    def watch_batches(self, mod, name: str, kind: str) -> None:
+        """``mod.name(backbones, cfg, batches, ...)`` consumes an iterable of
+        batches: the launches between two batches are the first's."""
+        fn = getattr(mod, name)
+        self.patches.append((mod, name, fn))
+        probe = self
+
+        def per_batch(batches):
+            k0 = None
+            for b in batches:
+                if k0 is not None:
+                    torch.cuda.synchronize()
+                    probe.calls.setdefault(kind, []).append(k1_now() - k0)
+                k0 = k1_now()
+                yield b
+            if k0 is not None:
+                torch.cuda.synchronize()
+                probe.calls.setdefault(kind, []).append(k1_now() - k0)
+
+        def wrapped(backbones, cfg, batches, *a, **kw):
+            out = fn(backbones, cfg, per_batch(batches), *a, **kw)
+            self.off_card += [f"{kind}: {b}" for b in on_card((backbones, out))]
+            return out
+        setattr(mod, name, wrapped)
+
+    def restore(self) -> None:
+        for mod, name, fn in reversed(self.patches):
+            setattr(mod, name, fn)
+        self.patches = []
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k0, t0 = k1_now(), time.perf_counter()
+        self.k1_events = []
+        yield
+        torch.cuda.synchronize()
+        self.stages[name] = {"wall_s": time.perf_counter() - t0, "k1_launches": k1_now() - k0,
+                             "k1_stack_s": sum(a.elapsed_time(b) for a, b in self.k1_events)
+                             / 1e3, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def demo_probe() -> DemoProbe:
+    """A probe on every call of the demo that launches, or must not launch,
+    K1."""
+    pr = DemoProbe()
+    pr.watch_factory(pb, "make_pretrain_step", ("pretrain_train_step", "pretrain_eval_step"))
+    pr.watch_factory(train_loop, "make_cached_epoch_fns",
+                     ("sweep_train_epoch", "sweep_eval_epoch"))
+    pr.watch_factory(plc_train, "make_plc_train_step",
+                     ("plc_train_step", "plc_eval_step", "plc_latent_step"))
+    pr.watch_batches(latent_cache, "build_latent_cache", "cache_build_batch")
+    # a backbone-evaluator call: one forward at each depth and a 4-stack probe
+    # of the token rate; the pairs fit one forward batch
+    pr.watch(dac_baseline, "eval_backbone_codec", "backbone_call")
+    pr.watch(proposed, "evaluate_proposed_model", "proposed_forward")
+    pr.watch(plots, "example_signals", "example",
+             per=lambda a, kw: min(len(a[3]), kw.get("num_examples", 10)))
+    pr.watch(eval_uniform, "eval_plc_file", "plc_file")
+    pr.watch(eval_categories, "eval_plc_file", "plc_file")
+    pr.watch(demo_eval_only, "measure", "latency_map")
+    pr.time_stacks()
+    return pr
+
+
+def key_tree(x):
+    """The keys of nested dicts; a list is the tree of its first row, all
+    rows alike (checked by ``same_rows``)."""
+    if isinstance(x, dict):
+        return {k: key_tree(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [key_tree(x[0])] if x else []
+    return None
+
+
+def same_rows(x) -> bool:
+    if isinstance(x, dict):
+        return all(same_rows(v) for v in x.values())
+    if isinstance(x, list):
+        return all(key_tree(v) == key_tree(x[0]) and same_rows(v) for v in x)
+    return True
+
+
+def demo_checkpoints(root: str, cfg: CodecConfig, runs: list, pretrained: bool) -> dict:
+    """Every checkpoint of a demo root read back strictly through
+    ``convert`` (and ``train/checkpoint.py`` for the usage counts): -> {path:
+    "ok" or the error}."""
+    out = {}
+
+    def read(rel, fn):
+        try:
+            fn(os.path.join(root, rel))
+            out[rel] = "ok"
+        except Exception as e:            # reported, and gated below
+            out[rel] = f"{type(e).__name__}: {e}"
+
+    bb_rel = os.path.join("backbone", "best.msgpack")
+    read(bb_rel, lambda p: load_dac(p, cfg.dac))
+    if pretrained:
+        read(os.path.join("backbone", "last.msgpack"), lambda p: load_dac(p, cfg.dac))
+        read(os.path.join("backbone", "vq_counts.msgpack"), lambda p: checkpoint.load_vq_counts(
+            p, (cfg.dac.n_codebooks, cfg.dac.codebook_size)))
+    bb = load_dac(os.path.join(root, bb_rel), cfg.dac)
+    for run in runs:
+        books, embed = (int(x) for x in re.match(r"rvqB(\d+)_K(\d+)$", run).groups())
+        for f in ("best.msgpack", "last.msgpack"):
+            read(os.path.join("sweep", run, f), lambda p: convert.codec_from_backbones(
+                bb, bb, p, cfg.with_rvq(books, embed)))
+    for mode in ("plc_uniform", "plc_category"):
+        n_layers = plc_config_from_meta(os.path.join(root, mode)).n_layers
+        for f in ("best.msgpack", "last.msgpack"):
+            read(os.path.join(mode, f), lambda p: load_plc_head(p, cfg, n_layers))
+    return out
+
+
+def gate_demo_launches(name: str, probe: DemoProbe, want_calls: dict) -> dict:
+    """Each recorded call's K1 launches against ``K1_PER_CALL``, and the
+    count of calls of each kind against ``want_calls``; -> {kind: [per-call
+    launches]}."""
+    per = {k: sorted(set(v)) for k, v in probe.calls.items()}
+    for kind, launches in per.items():
+        if kind == "latency_map":
+            continue
+        if kind == "backbone_call":
+            want = [len(NQ) * K1_PER_CALL["backbone_forward"] + 4 * K1_FP32]
+        else:
+            want = [K1_PER_CALL[kind]]
+        gate(launches == want, f"{name}: K1 launches of a {kind} {launches}, expected {want}")
+    counts = {k: len(v) for k, v in probe.calls.items()}
+    gate(all(counts.get(k, 0) == n for k, n in want_calls.items()),
+         f"{name}: calls {counts}, expected {want_calls}")
+    gate(not probe.off_card, f"{name}: off the card: {probe.off_card[:8]}")
+    return per
+
+
+def demo_phase() -> None:
+    """The port's end-to-end demo at full width on the card; see the module
+    docstring (phase 18)."""
+    t_phase = time.perf_counter()
+    cfg = CodecConfig()
+    shutil.rmtree(DEMO_DIR, ignore_errors=True)
+    reused = os.path.exists(R5[0])
+    if reused:      # r5's backbone as the demo's: stage 2 reuses it
+        os.makedirs(os.path.join(DEMO_DIR, "backbone"))
+        shutil.copy(R5[0], os.path.join(DEMO_DIR, "backbone", "best.msgpack"))
+    figures = artifacts.have_matplotlib()
+    probe = demo_probe()
+    tee = Tee(sys.stdout)
+    resunit.launches = 0
+    try:
+        with contextlib.redirect_stdout(tee):
+            out = demo_end_to_end.main(["--root", DEMO_DIR] + DEMO_FLAGS, stage=probe.stage)
+    finally:
+        probe.restore()
+    printed = "".join(tee.lines)
+    combined, examples = out["combined"], out["examples"]
+    runs = [r["run"] for r in combined["proposed_runs"]]
+    n_eval, n_plc = len(out["eval_pairs"]), len(out["plc_eval_pairs"])
+
+    # files, checkpoints, the JSON's keys, rates and metrics
+    missing = [os.path.relpath(p, DEMO_DIR) for p in demo_end_to_end.contract_files(
+        DEMO_DIR, runs, len(examples), pretrained=not reused, figures=figures)
+        if not os.path.exists(p)]
+    gate(not missing, f"demo: contract files missing: {missing}")
+    if not figures:
+        gate("curves.png not drawn" in printed and "stsim_vs_kbps.png" in printed,
+             "demo: no 'not drawn' line for the figures without matplotlib")
+    ckpts = demo_checkpoints(DEMO_DIR, cfg, runs, not reused)
+    gate(all(v == "ok" for v in ckpts.values()),
+         f"demo: checkpoints that do not read back: {ckpts}")
+    with open(os.path.join(EVIDENCE, "sweep", "eval_vs_backbone", demo_eval_only.OUT_JSON)) as f:
+        committed = json.load(f)
+    with open(os.path.join(DEMO_DIR, "sweep", "eval_vs_backbone", demo_eval_only.OUT_JSON)) as f:
+        written = json.load(f)
+    gate(key_tree(written) == key_tree(committed) and same_rows(written),
+         "demo: the combined JSON's keys differ from the committed evidence's")
+    rate_gaps = [abs(r["kbps"] - cfg.with_rvq(r["books"], r["embed"]).kbps())
+                 for r in written["proposed_runs"]] + [
+        abs(r["kbps"] - cfg.dac.tokens_per_sec * int(q) * np.log2(cfg.dac.codebook_size) / 1e3)
+        for q, r in written["dac_24khz"].items()]
+    gate(max(rate_gaps) <= 1e-9, f"demo: rates off their nominal rates by {rate_gaps}")
+    rows = (list(written["dac_24khz"].values()) + written["proposed_runs"]
+            + written["vc_pwq_runs"])
+    values = [r[k] for r in rows for k in r if k.endswith(("_mean", "_ci95"))]
+    gate(len(written["vc_pwq_runs"]) == len(EvalConfig().vc_b_list)
+         and all(np.isfinite(v) for v in values), "demo: a metric is not finite, or VC rows")
+    # (the stock-decoder columns are NaN without an inpainting decoder)
+    plc_vals = {f"{name}.{k}": v for name, summ in [("uniform", out["plc_uniform"])] + [
+        (c, out["plc_category"][c]) for c in masks.CATEGORIES] for k, v in summ.items()
+        if isinstance(v, float) and "stockdec" not in k and "dec_ft" not in k}
+    gate(all(np.isfinite(v) for v in plc_vals.values()),
+         f"demo: a PLC summary value is not finite: {plc_vals}")
+
+    # K1 per call of each kind, and how many calls
+    want_calls = {"pretrain_eval_step": 0 if reused else 1,
+                  "pretrain_train_step": 0 if reused else 2,
+                  "cache_build_batch": 2, "sweep_train_epoch": len(runs),
+                  "sweep_eval_epoch": len(runs), "backbone_call": 1,
+                  "proposed_forward": len(runs), "example": 1,
+                  "plc_file": n_plc * (1 + len(masks.CATEGORIES))}
+    per_call = gate_demo_launches("demo", probe, want_calls)
+
+    # the examples' PSNR against the evaluator's for each file alone
+    best = plots.best_by_stsim(combined["proposed_runs"])
+    peak = combined["config"]["peak_global_raw"]
+    bb = load_dac(os.path.join(DEMO_DIR, "backbone", "best.msgpack"), cfg.dac).cuda()
+    m = convert.codec_from_backbones(bb, bb, os.path.join(best["path"], "best.msgpack"),
+                                     cfg.with_rvq(best["books"], best["embed"]))
+    lat = {"enc_ms": 0.0, "dec_ms": 0.0, "enc_p50_ms": 0.0, "enc_p95_ms": 0.0,
+           "dec_p50_ms": 0.0, "dec_p95_ms": 0.0}
+    gaps = [abs(ex["psnr_db"] - proposed.evaluate_proposed_model(
+        m, [pair], peak, books_use=best["books"], latency=lat)["psnr_mean"])
+        for ex, pair in zip(examples, out["eval_pairs"])]
+    mean_gap = abs(float(np.mean([ex["psnr_db"] for ex in examples])) - best["psnr_mean"])
+    gate(len(gaps) == n_eval and max(gaps) <= 1e-3 and mean_gap <= 1e-3,
+         f"demo: example PSNR off the evaluator's by {gaps} (mean {mean_gap})")
+    say("demo", weights=("artifacts/r5 backbone (reused)" if reused
+                         else "pretrained in the demo from --seed 7"),
+        flags=DEMO_FLAGS, figures_drawn=figures, stages=probe.stages,
+        k1_per_call=per_call, calls={k: len(v) for k, v in probe.calls.items()},
+        checkpoints=len(ckpts), runs=runs, examples=len(examples),
+        example_psnr_gap_db=max(gaps), psnr_mean={r["run"]: r["psnr_mean"]
+                                                  for r in written["proposed_runs"]},
+        wall_s=time.perf_counter() - t_phase)
+
+
+def worst_gap(committed, fresh) -> dict:
+    """The largest |committed - fresh| of each tolerance class."""
+    out = {"psnr_db": 0.0, "stsim": 0.0, "kbps": 0.0}
+
+    def walk(c, f, key=""):
+        if isinstance(c, dict):
+            for k in c:
+                if k in f:
+                    walk(c[k], f[k], k)
+        elif isinstance(c, list):
+            for a, b in zip(c, f):
+                walk(a, b, key)
+        elif isinstance(c, float) and np.isfinite(c) and np.isfinite(f):
+            cls = "kbps" if "kbps" in key else "stsim" if "stsim" in key else "psnr_db"
+            out[cls] = max(out[cls], abs(c - f))
+    walk(committed, fresh)
+    return out
+
+
+def evidence_phase() -> None:
+    """``evidence_tiny check`` on the card; see the module docstring (phase
+    19)."""
+    t_phase = time.perf_counter()
+    probe = demo_probe()
+    resunit.launches = 0
+    try:
+        res = evidence_tiny.check(EVIDENCE_DIR, stage=probe.stage)
+    finally:
+        probe.restore()
+    gate(not res["mismatches"], f"evidence: off MANIFEST.json: {res['mismatches']}")
+    gate(not res["corpus"], f"evidence: corpus WAVs not the committed bytes: {res['corpus']}")
+    n_plc = len(res["demo"]["plc_eval_pairs"])
+    per_call = gate_demo_launches("evidence", probe, {
+        "pretrain_train_step": 0, "cache_build_batch": 2, "sweep_train_epoch": 0,
+        "plc_train_step": 0, "plc_latent_step": 0, "backbone_call": 1,
+        "proposed_forward": 2, "plc_file": n_plc * (1 + len(masks.CATEGORIES))})
+    say("evidence", mismatches=len(res["mismatches"]), corpus_mismatches=len(res["corpus"]),
+        max_deviation_from_manifest=worst_gap(res["committed"], res["fresh"]),
+        tolerances={"psnr_db": evidence_tiny.TOL_DB, "stsim": evidence_tiny.TOL_STSIM,
+                    "kbps": evidence_tiny.TOL_KBPS},
+        stages=probe.stages, k1_per_call=per_call, wall_s=time.perf_counter() - t_phase)
+
+
 def tree_at(tree, path):
     for k in path:
         tree = tree[k]
@@ -2083,6 +2522,8 @@ def main() -> int:
     cached_train_phase(ctx, args.seed)
     plc_train_phase(ctx, args.seed)
     pretrain_phase(args.seed)
+    demo_phase()
+    evidence_phase()
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} gate(s) failed", file=sys.stderr)
         return 1

@@ -14,8 +14,11 @@ decoder (``plc/train.py::finetune_inpaint_decoder``, read by
 floor keeps the stock decoder (a receiver with no PLC), and the same
 concealed latents through the stock decoder fill ``psnr_masked_stockdec_db``
 (NaN without ``dec_ft``), which isolates the decoder's share of the gain.
-Not ported yet: the example plots (``plot_top_k``), which raise
-``NotImplementedError``.
+With ``plot_top_k`` K > 0 a second pass re-runs the top-K files (by PSNR
+union ST-SIM, ``plc/plots.py::select_top_k``) with the identical reseeded
+masks and draws each one's waveform and mel figures
+(``plot_plc_example``); the re-runs are model work and run always, the
+drawing where matplotlib is installed (one line says so where it is not).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from ..utils import artifacts
 from ..utils.wav_io import load_wav_mono
 from . import masks
 from . import model as plc_model
+from .plots import plot_plc_example, select_top_k
 from ..models import dac
 from ..models.dac import Decoder
 from .model import PLCModules
@@ -45,11 +49,6 @@ def _nanmean_or_nan(vals) -> float:
     a = np.asarray(vals, dtype=np.float64)
     finite = a[np.isfinite(a)]
     return float(finite.mean()) if finite.size else float("nan")
-
-
-def _refuse_unported(plot_top_k: int = 0) -> None:
-    if plot_top_k > 0:
-        raise NotImplementedError("plot_top_k: the PLC plots are not ported yet")
 
 
 CSV_FIELDS = [
@@ -102,11 +101,14 @@ def eval_plc_file(
     mask_embed: bool = False,
     dec_ft: Optional[Decoder] = None,
     device=None,
+    return_signals: bool = False,
 ) -> dict:
     """One file through the concealment model with a deterministic mask ->
     its CSV row. ``mask_embed`` must match the run's training condition (its
     meta.json); ``dec_ft`` decodes the concealed latents in place of the
-    stock decoder."""
+    stock decoder. ``return_signals`` adds the aligned reference and
+    concealed signals (``_ref``, ``_est``) and the token mask (``_mask``),
+    for the second pass."""
     dev = resolve_device(device)
     modules = modules.to(dev).eval()
     dec_ft = dec_ft.to(dev).eval() if dec_ft is not None else None
@@ -148,7 +150,10 @@ def eval_plc_file(
 
     ref_vec, est_vec = r_a[0], e_a[0]
     sm = M.token_mask_to_sample_mask(latent_mask, ref_vec.shape[0])
+    extras = ({"_ref": ref_vec, "_est": est_vec, "_mask": latent_mask}
+              if return_signals else {})
     return {
+        **extras,
         "psnr_masked_zero_db": psnr_masked_zero,
         "stsim_global_zero": stsim_g0,
         "psnr_masked_stockdec_db": psnr_masked_stockdec,
@@ -165,6 +170,16 @@ def eval_plc_file(
         "stsim_masked": stsim_m,
         "stsim_unmasked": stsim_u,
     }
+
+
+def _mask_fn(pcfg: PLCConfig, seed: int, idx: int) -> Callable[[int], np.ndarray]:
+    """The uniform mask of the ``idx``-th file (1-based), seeded from
+    ``seed * 1000`` and the index."""
+    def mask_fn(t_lat: int) -> np.ndarray:
+        rng = np.random.default_rng(masks.eval_mask_seed(seed * 1000, idx))
+        return masks.make_token_loss_mask(rng, 1, t_lat, pcfg.packet_tok,
+                                          pcfg.packet_loss_prob)[0]
+    return mask_fn
 
 
 def _mean(rows: list, key: str) -> float:
@@ -185,22 +200,16 @@ def eval_plc_uniform(
 ) -> dict:
     """Metrics over all pairs -> ``eval_metrics.csv`` and ``eval_summary.json``
     in ``out_dir``; returns the summary. ``dec_ft``: an inpainting decoder
-    for the concealed path."""
-    _refuse_unported(plot_top_k)
+    for the concealed path. ``plot_top_k`` > 0: the second pass
+    (``plot_top_k_files``)."""
     os.makedirs(out_dir, exist_ok=True)
     dev = resolve_device(device)
     modules = modules.to(dev).eval()
     peak_global = M.compute_global_peak([t for _, t, _ in pairs])
-    base_seed = seed * 1000
 
     rows = []
     for idx, (ap, tp, stem) in enumerate(pairs, start=1):
-        def mask_fn(t_lat, idx=idx):
-            rng = np.random.default_rng(masks.eval_mask_seed(base_seed, idx))
-            return masks.make_token_loss_mask(
-                rng, 1, t_lat, pcfg.packet_tok, pcfg.packet_loss_prob)[0]
-
-        row = eval_plc_file(modules, ap, tp, mask_fn, peak_global, ecfg,
+        row = eval_plc_file(modules, ap, tp, _mask_fn(pcfg, seed, idx), peak_global, ecfg,
                             mask_embed=pcfg.mask_embed, dec_ft=dec_ft, device=dev)
         rows.append(row)
         log(f"[plc-eval {idx}/{len(pairs)}] {stem} "
@@ -217,7 +226,33 @@ def eval_plc_uniform(
     summary["num_files"] = len(rows)
     summary["peak_global"] = peak_global
     artifacts.write_json(os.path.join(out_dir, "eval_summary.json"), summary)
+    if plot_top_k > 0:
+        plot_top_k_files(modules, pairs, rows, out_dir, plot_top_k, pcfg, ecfg, seed,
+                         peak_global, dec_ft=dec_ft, log=log, device=dev)
     return summary
+
+
+def plot_top_k_files(modules: PLCModules, pairs: Sequence[Pair], rows: list, out_dir: str,
+                     k: int, pcfg: PLCConfig, ecfg: EvalConfig, seed: int,
+                     peak_global: float, dec_ft: Optional[Decoder] = None,
+                     log: Callable = print, device=None) -> None:
+    """The evaluator's second pass: the top-``k`` files of ``rows`` (by PSNR
+    union ST-SIM) through ``eval_plc_file`` again, with the masks of the
+    first pass (the same per-file seeds), and their waveform and mel figures
+    in ``out_dir`` where matplotlib is installed."""
+    best = select_top_k(rows, k)
+    draw = artifacts.have_matplotlib()
+    for idx, (ap, tp, stem) in enumerate(pairs, start=1):
+        if stem not in best:
+            continue
+        row = eval_plc_file(modules, ap, tp, _mask_fn(pcfg, seed, idx), peak_global, ecfg,
+                            mask_embed=pcfg.mask_embed, dec_ft=dec_ft, device=device,
+                            return_signals=True)
+        if draw:
+            plot_plc_example(out_dir, stem, row["_ref"], row["_est"], row["_mask"],
+                             sr=ecfg.eval_sr)
+    if not draw:
+        log(artifacts.not_drawn(f"plc_*_wave.png and plc_*_mel.png of {len(best)} files"))
 
 
 def stockdec_summary(rows: list) -> dict:

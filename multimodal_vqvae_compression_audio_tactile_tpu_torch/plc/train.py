@@ -342,8 +342,9 @@ def train_plc(
     """Train a PLC head of ``pcfg.n_layers`` blocks; -> hist. Writes
     ``last.msgpack`` (every ``save_every`` epochs and at the end),
     ``best.msgpack`` (the best validation loss after
-    ``tcfg.best_after_epoch``), ``hist.json`` and ``meta.json`` (mode, the
-    ``PLCConfig``, the loss weights, tokens/s, epochs). ``resume`` continues
+    ``tcfg.best_after_epoch``), ``hist.json``, ``meta.json`` (mode, the
+    ``PLCConfig``, the loss weights, tokens/s, epochs) and the loss curves'
+    ``curves.png`` (one line instead where matplotlib is missing). ``resume`` continues
     from ``last.msgpack`` with the schedule shifted to its epoch. The first
     ``latent_pretrain_epochs`` train the decoder-free latent regression;
     validation always scores the full loss. ``on_epoch(ep, head)`` is called
@@ -458,6 +459,8 @@ def train_plc(
         "epochs": tcfg.epochs,
     })
     artifacts.write_hist(out_dir, hist)
-    log(f"[plc:{mode}] curves.png not written: the loss curves need matplotlib "
-        "(ROADMAP.md, Queue 1 item 11)")
+    if artifacts.have_matplotlib():
+        artifacts.write_curves(out_dir, hist, title=f"PLC ({mode})")
+    else:
+        log(f"[plc:{mode}] " + artifacts.not_drawn("curves.png"))
     return hist

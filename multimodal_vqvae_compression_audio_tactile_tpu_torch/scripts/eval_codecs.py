@@ -9,11 +9,13 @@ the backbone baseline at ``EvalConfig().dac_nq_list``, every ``rvqB*_K*`` run
 of the sweep and, given the VC-PWQ codec's output directories, its rows;
 written as one JSON with the JAX script's keys
 (``eval_all_vs_backbone_rawPSNR_latency.json`` in ``--out-dir``, by default
-``S/eval_vs_backbone``), and a printed latency summary. Latency is measured
-in this process (bf16, CUDA events on the card). It draws no plots: the
-rate-distortion and example plots are not ported. The backbone checkpoint
-serves as both the audio and the tactile backbone. The model runs on the
-card, or on the CPU with ``--cpu``.
+``S/eval_vs_backbone``), the five rate-distortion figures and the example
+figures of the best run by ST-SIM on the first 10 pairs beside it, and a
+printed latency summary. Latency is measured in this process (bf16, CUDA
+events on the card). The examples' model work runs always; where matplotlib
+is missing the figures are not drawn and one line names them. The backbone
+checkpoint serves as both the audio and the tactile backbone. The model runs
+on the card, or on the CPU with ``--cpu``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ..convert import load_dac
 from ..core.config import CodecConfig, EvalConfig
 from ..data.pairs import pair_stems
 from ..eval import metrics as M
+from ..eval import plots
 from ..eval.dac_baseline import eval_backbone_codec
 from ..eval.proposed import eval_proposed_runs
 from ..eval.serving import resolve_device
@@ -91,6 +94,10 @@ def main(argv=None) -> dict:
     with open(out_json, "w") as f:
         json.dump(combined, f, indent=2)
     print(f"Saved JSON -> {out_json}")
+    best = plots.best_by_stsim(proposed_rows)
+    examples = ([] if best is None else
+                plots.example_signals(best, cfg, bbs, pairs, device=device, peak=peak_global))
+    plots.draw_benchmark(dac24, proposed_rows, vc_rows, examples, out_dir)
 
     print("\n==== Latency summary (ms) ====")
     for q in sorted(dac24, key=lambda q: dac24[q]["kbps"]):

@@ -304,9 +304,10 @@ def train_codec(cfg: CodecConfig, tcfg: TrainConfig, backbones: dict,
     77``; the batch callables are not used then and may be None. Writes
     ``last.msgpack`` every ``save_every`` epochs and at the end,
     ``best.msgpack`` (the best validation loss after
-    ``tcfg.best_after_epoch``) at the end, and ``hist.json``; the loss
-    curves' ``curves.png`` is not written (no matplotlib). ``on_epoch(ep,
-    head)`` is called after each epoch's bookkeeping."""
+    ``tcfg.best_after_epoch``) at the end, ``hist.json`` and the loss
+    curves' ``curves.png`` (where matplotlib is missing, one line says it is
+    not drawn). ``on_epoch(ep, head)`` is called after each epoch's
+    bookkeeping."""
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     head = allpred_ar.head_init(cfg, torch.Generator().manual_seed(seed))
@@ -437,6 +438,8 @@ def train_codec(cfg: CodecConfig, tcfg: TrainConfig, backbones: dict,
     finally:
         acp.close()
     artifacts.write_hist(out_dir, hist)
-    log("curves.png not written: the loss curves need matplotlib "
-        "(ROADMAP.md, Queue 1 item 11)")
+    if artifacts.have_matplotlib():
+        artifacts.write_curves(out_dir, hist, title="AllPredAR A->T")
+    else:
+        log(artifacts.not_drawn("curves.png"))
     return hist

@@ -1,9 +1,12 @@
 """Run-artifact readers and writers: JSON, CSV, a run's ``hist.json`` and
 ``meta.json``, and the sweep's ``rvqB{B}_K{K}`` run directories.
 
-The JAX package's ``utils/artifacts.py`` but for ``write_curves`` (the loss
-curves' PNG, which needs matplotlib): the same files in the same formats, so
-a run written by either package reads in the other.
+The JAX package's ``utils/artifacts.py``: the same files in the same
+formats, so a run written by either package reads in the other, and the
+same loss-curve figure (``write_curves``). matplotlib is imported only inside
+the functions that draw: a machine without it (the card's) runs everything
+else, and ``have_matplotlib`` tells the callers whether a figure can be
+drawn there.
 """
 
 from __future__ import annotations
@@ -25,6 +28,44 @@ def write_json(path: str, obj: Any) -> None:
 
 def write_hist(out_dir: str, hist: dict) -> None:
     write_json(os.path.join(out_dir, "hist.json"), hist)
+
+
+def have_matplotlib() -> bool:
+    """Whether matplotlib can be imported here (it is imported lazily, by
+    the functions that draw)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def not_drawn(what: str) -> str:
+    """The one line that stands in for figures that are not drawn."""
+    return f"{what} not drawn: matplotlib is not installed"
+
+
+def write_curves(out_dir: str, hist: dict, title: str = "training curves") -> str:
+    """The loss curves' PNG, ``out_dir/curves.png`` (the JAX package's
+    figure: train and val against the epoch)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    plt.figure(figsize=(11, 5))
+    for key in ("train", "val"):
+        if key in hist and hist[key]:
+            plt.plot(hist[key], label=key)
+    plt.xlabel("Epoch")
+    plt.ylabel("Loss")
+    plt.grid(True)
+    plt.legend()
+    plt.title(title)
+    plt.tight_layout()
+    out = os.path.join(out_dir, "curves.png")
+    plt.savefig(out)
+    plt.close()
+    return out
 
 
 def write_meta(out_dir: str, meta: dict) -> None:

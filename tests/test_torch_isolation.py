@@ -2,7 +2,9 @@
 
 The machine with the card has none of them, so an import of any (even of a
 JAX-free module of the JAX package, whose ``__init__`` pulls jax in) would
-pass every CPU test here and die there on its first import.
+pass every CPU test here and die there on its first import. It has no
+matplotlib and no h5py either: the port imports them only inside the
+functions that draw or read HDF5, and runs with both blocked.
 """
 
 import ast
@@ -50,9 +52,43 @@ def test_no_forbidden_import(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+# absent on the card's machine: imported only inside the functions that use them
+LAZY = {"matplotlib", "h5py"}
+
+
+def _module_level_heads(src, name="<src>"):
+    """Top-level package of every import that runs when the module is
+    imported: the module's body, outside any function."""
+    def walk(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            yield node
+            yield from walk(ast.iter_child_nodes(node))
+    for node in walk(ast.parse(src, name).body):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_module_level_plotting_or_hdf5_import(path):
+    with open(path) as f:
+        bad = sorted(set(_module_level_heads(f.read(), path)) & LAZY)
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad} at module level"
+
+
+def test_module_level_heads_skip_function_bodies():
+    src = ("import os\nclass A:\n    import h5py\n"
+           "def f():\n    import matplotlib\n    from matplotlib import pyplot\n")
+    assert sorted(_module_level_heads(src)) == ["h5py", "os"]
+
+
 _BLOCKED_RUN = f"""
 import importlib.abc, os, sys
-BLOCK = {sorted(FORBIDDEN)!r}
+BLOCK = {sorted(FORBIDDEN | LAZY)!r}
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -138,6 +174,11 @@ for gan in (None, GanConfig(periods=(2,), fft_sizes=(64,))):
                                     device="cpu", log=lambda s: None)
         assert np.isfinite(hist["train"][0]) and os.path.exists(os.path.join(
             d, "vq_counts.msgpack" if gan is None else "disc_last.msgpack"))
+import {PORT}.scripts.demo_end_to_end, {PORT}.scripts.evidence_tiny
+import {PORT}.scripts.collect_evidence, {PORT}.scripts.extract_dataset
+import {PORT}.eval.plots, {PORT}.plc.plots, {PORT}.data.mat_extract
+from {PORT}.utils import artifacts
+assert not artifacts.have_matplotlib()
 assert not any(n.split(".")[0] in BLOCK for n in sys.modules)
 print("ISOLATED_OK", len(streams[0]))
 """

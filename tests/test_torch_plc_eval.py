@@ -31,6 +31,7 @@ from multimodal_vqvae_compression_audio_tactile_tpu_torch.data import pair_stems
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc import eval_uniform
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc.eval_categories import (
     eval_plc_categories)
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc.plots import select_top_k
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc.train import plc_config_from_meta
 
 from test_torch_plc import BACKBONE, EVIDENCE, HEADS, _jax_trained
@@ -153,14 +154,21 @@ def test_summaries_match_jax(runs):
 
 
 def test_unported_options_raise(tmp_path):
-    """The example plots are not ported and raise; ``dec_ft`` (the inpainting
-    decoder, once refused here) is taken: with the stock decoder as
-    ``dec_ft`` the rows equal those without it, and the stock-decoder
-    column equals the concealed one."""
+    """The options once refused here are taken. ``plot_top_k`` (the example
+    figures, once refused) writes each top file's waveform and mel figures,
+    the files ``select_top_k`` picks from the written CSV's rows; ``dec_ft``
+    (the inpainting decoder): with the stock decoder as ``dec_ft`` the rows
+    equal those without it, and the stock-decoder column equals the
+    concealed one."""
     m = convert.load_plc(BACKBONE, HEADS["plc_uniform"], CodecConfig().tiny(), 2)
     val = _held_out(pair_stems, split_items)
-    with pytest.raises(NotImplementedError, match="plot"):
-        eval_uniform.eval_plc_uniform(m, val, str(tmp_path), plot_top_k=2, device="cpu")
+    eval_uniform.eval_plc_uniform(m, val, str(tmp_path / "p"), plot_top_k=2, device="cpu",
+                                  log=lambda *_: None)
+    rows = [{k: (v if k == "stem" else float(v)) for k, v in r.items()}
+            for r in _rows(tmp_path / "p" / "eval_metrics.csv")]
+    top = select_top_k(rows, 2)
+    pngs = sorted(f for f in os.listdir(tmp_path / "p") if f.endswith(".png"))
+    assert pngs == sorted(f"plc_{s}_{fig}.png" for s in top for fig in ("mel", "wave"))
     plain = eval_uniform.eval_plc_uniform(m, val, str(tmp_path / "a"), device="cpu",
                                           log=lambda *_: None)
     stock = eval_uniform.eval_plc_uniform(m, val, str(tmp_path / "b"), device="cpu",
