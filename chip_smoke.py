@@ -16,18 +16,24 @@ random ones made from ``--seed``. Phases, one line of numbers each:
 1. build: the three CUDA libraries compiled from the repository's sources,
    one ``nvcc`` each, all started together, with each kernel's registers,
    spills and shared memory from ptxas (and the dynamic shared memory of
-   each tensor-core tile); then ``sass``: the HMMA (tensor-core)
-   instructions that ``cuobjdump -sass`` finds in the two stack libraries,
-   which must be more than 0 in both, and in K2's library, which must hold
-   no HMMA and no FFMA (its scores are separately rounded fp32 products and
-   sums);
+   each tensor-core tile and each fp32 FFMA tile); then ``sass``: the HMMA
+   (tensor-core) instructions that ``cuobjdump -sass`` finds in the two
+   stack libraries, which must be more than 0 in both, and in K2's library,
+   which must hold no HMMA and no FFMA (its scores are separately rounded
+   fp32 products and sums); and for each fp32 stack kernel function
+   (``ffma_unit_kernel``) its FFMA, LDS.128 and HMMA counts, FFMA more than 0
+   and no HMMA (true fp32: no tensor cores, no TF32);
 2. kernel check, each kernel against its plain version on the same inputs:
    K1 (``resunit_stack``) at the eight stack shapes of the default path and
    K3 (``resunit_stack_tm``) at the four narrow ones of the time-major path,
    fp32 (FFMA; max relative error 1e-4, TF32 off; both also against an fp64
-   run of the stack) and bf16 (tensor cores; 2e-2), each with its launch
-   grid, timed with CUDA events beside the plain version and cuDNN's
-   convolutions of the same stack; K2 (``rvq_lookup``)
+   run of the stack; K1 bit-equal to its plain version, reported at every
+   shape and gated at the eight) and bf16 (tensor cores; 2e-2), each with
+   its tile and launch grid, timed with CUDA events beside the plain version
+   and cuDNN's convolutions of the same stack; then fp32 K1 at the eight
+   shapes and K3 at the four at batch 8 (the trainers' batch), against the
+   plain version (within 1e-4, K1's bit-equality reported) and timed beside
+   cuDNN (reported, not gated on time); K2 (``rvq_lookup``)
    at the head RVQ's shapes, ties and ``n_books_use`` included (indices
    equal to the plain version's and to ``ops/rvq.py::rvq_quantize``'s,
    q_sum bit-equal), timed beside the plain version and the score products
@@ -542,12 +548,55 @@ def check_stacks(name: str, stacks: list, time_major: bool, gen: torch.Generator
                   **stack_bound(c, t, dt)}
             rec.add(dt, abs_err, **ms)
             grid = resunit.launch_grid(c, t, 1, dt)
+            fp32 = dt == torch.float32
+            equal = bool(torch.equal(got, ref)) if fp32 else None
+            if fp32 and not time_major:
+                # the fp32 code-equality gates downstream rest on this
+                gate(equal, f"{name} fp32 not bit-equal to plain at C={c} T={t}")
             say("kernel_check", kernel=name, C=c, T=t, dtype=dtype_name(dt),
                 grid=grid, blocks=grid[0] * grid[1] * grid[2],
-                tile=resunit.pick_tile(c, t) if dt == torch.bfloat16 else resunit.FFMA_TILE,
-                rel_err=err, max_abs_err=abs_err, **vs64, **ms)
+                tile=resunit.pick_ffma_tile(c, t) if fp32 else resunit.pick_tile(c, t),
+                bit_equal=equal, rel_err=err, max_abs_err=abs_err, **vs64, **ms)
     rec.report(name)
     return rec
+
+
+FP32_BATCH = 8   # the pretraining eval's batch (the head trainers': 6)
+
+
+@torch.no_grad()
+def check_fp32_batch(gen: torch.Generator) -> dict:
+    """fp32 K1 at the eight stack shapes and K3 at the four at batch
+    ``FP32_BATCH``: against the plain version (within 1e-4; K1's bit-equality
+    reported), timed by CUDA events beside cuDNN's convolutions of the same
+    stack. Reported, not gated on time."""
+    dev, dils, sums = torch.device("cuda"), resunit.DILATIONS, {}
+    for name, stacks, time_major in (("resunit_stack", STACKS, False),
+                                     ("resunit_stack_tm", TM_STACKS, True)):
+        kernel = resunit_tm.resunit_stack_tm if time_major else resunit.resunit_stack
+        plain = resunit_tm.resunit_stack_tm_ref if time_major else resunit.resunit_stack_ref
+        tot = sums.setdefault(name, {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0})
+        for c, t, post in stacks:
+            units = make_units(c, gen, dev)
+            x_nch = torch.randn(FP32_BATCH, c, t, generator=gen).to(dev)
+            x = x_nch.transpose(1, 2).contiguous() if time_major else x_nch
+            pa = torch.empty(c).uniform_(0.5, 1.5, generator=gen).to(dev) if post else None
+            got, ref = kernel(units, x, dils, pa), plain(units, x, dils, pa)
+            torch.cuda.synchronize()
+            err = rel_err(got, ref)
+            gate(bool(torch.isfinite(got).all()) and err <= TOL[torch.float32],
+                 f"{name} fp32 batch {FP32_BATCH} vs plain at C={c} T={t}: rel {err:.3e}")
+            ms = {"ms": cuda_ms(lambda: kernel(units, x, dils, pa)),
+                  "library_ms": cuda_ms(lambda: cudnn_convs(units, x_nch)),
+                  "bound_ms": FP32_BATCH * stack_bound(c, t, torch.float32)["bound_ms"]}
+            for k, v in ms.items():
+                tot[k] += v
+            say("kernel_check_batch", kernel=name, batch=FP32_BATCH, C=c, T=t, dtype="float32",
+                tile=resunit.pick_ffma_tile(c, t, FP32_BATCH),
+                grid=resunit.launch_grid(c, t, FP32_BATCH, torch.float32),
+                bit_equal=bool(torch.equal(got, ref)), rel_err=err, **ms)
+        say("kernel_totals_batch", kernel=name, batch=FP32_BATCH, dtype="float32", **tot)
+    return sums
 
 
 def rvq_bound(n: int, k: int, d: int, use: int) -> dict:
@@ -856,10 +905,10 @@ def kind_of(kernel: str) -> str:
         # the tensor-core stacks: the template's CF flag is true for K1
         head = k.replace("(anonymous namespace)", "").split("(")[0]
         return "K1 resunit_stack" if "true" in head else "K3 resunit_stack_tm"
-    if "unit_tm_kernel" in k:
-        return "K3 resunit_stack_tm"
-    if "unit_conv_kernel" in k:
-        return "K1 resunit_stack"
+    if "ffma_unit_kernel" in k:
+        # the fp32 stacks, ffma_unit_kernel<KT, CF, SNAKE, ...>: CF is true for K1
+        args = k.replace("(anonymous namespace)", "").split("(")[0].split("<")[1].split(",")
+        return "K1 resunit_stack" if args[1].strip() == "true" else "K3 resunit_stack_tm"
     if "rvq_kernel" in k:
         return "K2 rvq_lookup"
     if any(s in k for s in ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad")):
@@ -2436,21 +2485,36 @@ def cuobjdump() -> str:
     raise RuntimeError("cuobjdump not found: the sass check needs it")
 
 
+def sass_functions(sass: str) -> dict:
+    """``cuobjdump -sass`` output split by kernel function: name -> its text."""
+    parts = re.split(r"\n\s*Function : (\S+)", sass)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
 def sass_check() -> None:
     """HMMA (tensor-core MMA) instructions in the two stack libraries' SASS;
-    in K2's, none, and no FFMA: its scores stay separately rounded fp32."""
-    tool, counts = cuobjdump(), {}
+    in K2's, none, and no FFMA: its scores stay separately rounded fp32. In
+    each fp32 stack kernel (``ffma_unit_kernel``): FFMA, and no HMMA."""
+    tool, counts, fp32 = cuobjdump(), {}, {}
     for mod in (resunit, resunit_tm, vq):
         name = mod.LIBRARY[0]
         sass = subprocess.run([tool, "-sass", os.path.join(_build.BUILD_DIR, f"lib{name}.so")],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         counts[f"lib{name}.so"] = {op: len(re.findall(rf"\b{op}\b", sass))
                                    for op in ("HMMA", "FFMA", "FMUL", "FADD")}
-    say("sass", tool=tool, instructions=counts)
+        for fn, text in sass_functions(sass).items():
+            if "ffma_unit_kernel" in fn:
+                short = re.sub(r"^.*ffma_unit_kernelI", "", fn).split("EEEv")[0]
+                fp32[f"lib{name}.so:{short}"] = {
+                    op: len(re.findall(rf"\b{re.escape(op)}\b", text))
+                    for op in ("FFMA", "LDS.128", "HMMA")}
+    say("sass", tool=tool, instructions=counts, fp32_kernels=fp32)
     stacks = [counts[f"lib{mod.LIBRARY[0]}.so"]["HMMA"] for mod in (resunit, resunit_tm)]
     gate(all(n > 0 for n in stacks), f"no HMMA instruction in a stack library: {counts}")
     k2 = counts[f"lib{vq.LIBRARY[0]}.so"]
     gate(k2["HMMA"] == 0 and k2["FFMA"] == 0, f"librvq.so scores off plain fp32: {k2}")
+    gate(len(fp32) > 0 and all(c["HMMA"] == 0 and c["FFMA"] > 0 for c in fp32.values()),
+         f"fp32 stack kernels off FFMA: {fp32}")
 
 
 def main() -> int:
@@ -2480,13 +2544,18 @@ def main() -> int:
         tensor_core_dynamic_smem_bytes={
             f"{tm}x{tn}": {"k7_d9": lib.resunit_smem_bytes(7, tm, tn, 9),
                            "k1": lib.resunit_smem_bytes(1, tm, tn, 1)}
-            for tm, tn in resunit.TILES})
+            for tm, tn in resunit.TILES},
+        ffma_dynamic_smem_bytes={
+            f"{tm}x{tn}": {"k7": lib.resunit_ffma_smem_bytes(7, tm, tn),
+                           "k1": lib.resunit_ffma_smem_bytes(1, tm, tn)}
+            for tm, tn in resunit.FFMA_TILES})
     sass_check()
 
     gen = torch.Generator().manual_seed(args.seed)
     with fp32_exact():      # the plain versions' and cuDNN's fp32 convolutions
         records = {"resunit_stack": check_stacks("resunit_stack", STACKS, False, gen),
                    "resunit_stack_tm": check_stacks("resunit_stack_tm", TM_STACKS, True, gen)}
+        check_fp32_batch(gen)
         check_rvq_cases(gen)
 
     t0 = time.perf_counter()

@@ -4,12 +4,14 @@ A residual unit is snake -> dilated k=7 conv -> snake -> k=1 conv -> residual
 add (``models/dac.py::_resunit_apply`` in the JAX package); a stack is up to
 three units at dilations 1/3/9, optionally followed by the block's trailing
 snake. ``resunit_stack`` sends a CUDA tensor through ``csrc/resunit_stack.cu``
-(fp32 on FFMA, two launches per unit; bf16 on the tensor cores through the
-product core ``csrc/resunit_mma.cuh`` that K3 shares, two launches per unit
-and one prologue that snakes the first unit's input and packs the stack's
-weights in bf16) and a CPU tensor through ``resunit_stack_ref``. It never
-sends a CUDA tensor to the plain version: what the kernel does not take
-raises. The kernel has no backward (nor has the JAX package's, which trains
+(fp32 on FFMA through the product core ``csrc/resunit_ffma.cuh`` that K3
+shares, two launches per unit, with the tile of ``pick_ffma_tile`` and every
+output summed in cuDNN's order, so bit-equal to the plain version; bf16 on
+the tensor cores through the product core ``csrc/resunit_mma.cuh`` that K3
+shares, two launches per unit and one prologue that snakes the first unit's
+input and packs the stack's weights in bf16) and a CPU tensor through
+``resunit_stack_ref``. It never sends a CUDA tensor to the plain version:
+what the kernel does not take raises. The kernel has no backward (nor has the JAX package's, which trains
 through XLA): a CUDA call that autograd would record raises too
 (``refuse_autograd``), where the result would otherwise come back detached
 and the gradient silently cut.
@@ -33,7 +35,13 @@ SMS = 132                  # streaming multiprocessors of an H100 SXM
 # (t_tile, co_tile) of the bf16 tensor-core kernels (csrc/resunit_mma.cuh), in
 # order of preference: a taller t tile stages each weight for more rows
 TILES = ((128, 32), (64, 32), (32, 32))
-FFMA_TILE = (64, 64)       # the fp32 kernels' [T x C_out] tile
+# (t_tile, co_tile) of the fp32 FFMA kernels (csrc/resunit_ffma.cuh), with
+# the time steps a thread takes at a stride of the dilation: 4 warps sharing
+# 64 channels' weights over 64 steps, or 32 channels over 128; 32 x 64 (4
+# steps a thread, twice the threads) where 64 x 64 gives an SM fewer than
+# two blocks; 64 x 32 where C is not a multiple of 32
+FFMA_STEPS = {(64, 64): 8, (128, 32): 8, (32, 64): 4, (64, 32): 8}
+FFMA_TILES = tuple(FFMA_STEPS)
 
 # Kernel launches made by ``resunit_stack`` (``stack_launches`` a stack);
 # reset it to 0 before a run to count that run's launches.
@@ -122,11 +130,33 @@ def pick_tile(C: int, T: int, B: int = 1) -> Tuple[int, int]:
     return TILES[-1]
 
 
-def launch_grid(C: int, T: int, B: int, dtype: torch.dtype) -> Tuple[int, int, int]:
-    """The grid (t tiles, C_out tiles, batch) of each launch of a K1 or K3
-    stack at this shape and operand type."""
-    tile = pick_tile(C, T, B) if dtype == torch.bfloat16 else FFMA_TILE
-    return (math.ceil(T / tile[0]), math.ceil(C / tile[1]), B)
+def pick_ffma_tile(C: int, T: int, B: int = 1) -> Tuple[int, int]:
+    """The (t_tile, co_tile) of the fp32 FFMA kernels for [B, C, T] (or
+    [B, T, C]): where C is a multiple of 64, 64 x 64 if its grid gives each
+    of the card's ``SMS`` multiprocessors two blocks, else 32 x 64 (4 steps a
+    thread, twice the warps); else 128 x 32 where C is a multiple of 32, so
+    that no channel tile is part-empty, else 64 x 32. (Timed on the H100 at
+    the stack shapes, 64 x 64 and 128 x 32 were within a few percent of each
+    other where both give two blocks an SM.)"""
+    if C % 64 == 0:
+        return (64, 64) if _blocks(C, T, B, (64, 64)) >= 2 * SMS else (32, 64)
+    return (128, 32) if C % 32 == 0 else (64, 32)
+
+
+def launch_grid(C: int, T: int, B: int, dtype: torch.dtype,
+                dil: int = 1) -> Tuple[int, int, int]:
+    """The grid (t tiles, C_out tiles, batch) of a launch of a K1 or K3 stack
+    at this shape and operand type: every bf16 launch's, and the fp32 k=7
+    launch's at dilation ``dil`` (the k=1 launches' at 1). An fp32 thread
+    takes ``FFMA_STEPS[tile]`` steps at a stride of d, d neighbouring threads
+    d residues, so time is cut into d ceil(T / (steps d)) such runs."""
+    if dtype == torch.bfloat16:
+        tile = pick_tile(C, T, B)
+        return (math.ceil(T / tile[0]), math.ceil(C / tile[1]), B)
+    tile = pick_ffma_tile(C, T, B)
+    steps = FFMA_STEPS[tile]
+    runs = dil * math.ceil(T / (steps * dil))
+    return (math.ceil(runs / (tile[0] // steps)), math.ceil(C / tile[1]), B)
 
 
 # (library name, source under csrc/)
@@ -137,6 +167,7 @@ _SIGNATURES = {
     "resunit_conv7": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "resunit_conv1": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "resunit_smem_bytes": [ctypes.c_int] * 4,
+    "resunit_ffma_smem_bytes": [ctypes.c_int] * 3,
 }
 
 
@@ -162,7 +193,7 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def stack_ptrs(units: Sequence[ResUnit]) -> tuple:
-    """(kept, pointers) of a stack's fp32 parameters for the bf16 kernels:
+    """(kept, pointers) of a stack's fp32 parameters for the kernels:
     ``pointers[u]`` = (w7, b7, w1, b1, a1, a2) of unit u; ``kept`` holds any
     converted copies, which must outlive the launches."""
     kept, ptrs = [], []
@@ -221,6 +252,39 @@ def _stack_bf16(lib, units: Sequence[ResUnit], x: torch.Tensor, dils: tuple,
     return out
 
 
+def _stack_fp32(lib, units: Sequence[ResUnit], x: torch.Tensor, dils: tuple,
+                post_alpha: Optional[torch.Tensor], stream: int) -> torch.Tensor:
+    """The fp32 launches of one stack, two per unit, all [B, C, T]: unit 0's
+    k=7 launch snakes x on the way in; each k=1 launch but the last also
+    writes the next unit's snaked operand hs, which the next k=7 launch reads
+    as it is."""
+    global launches
+    B, C, T = x.shape
+    n = len(units)
+    tile = pick_ffma_tile(C, T, B)
+    kept, ptrs = stack_ptrs(units)      # kept alive until the launches are queued
+    post = _f32(post_alpha) if post_alpha is not None else None
+    hs = torch.empty_like(x) if n > 1 else None
+    cur = x
+    for i, d in enumerate(dils):
+        w7, b7, w1, b1, a1, a2 = ptrs[i]
+        h2 = torch.empty_like(x)
+        src, a1_in = (x.data_ptr(), a1) if i == 0 else (hs.data_ptr(), None)
+        _check(lib.resunit_conv7(src, w7, b7, a1_in, a2, h2.data_ptr(), B, C, T, d, 0, *tile,
+                                 stream), "resunit_conv7")
+        launches += 1
+        last = i == n - 1
+        post_i, a1_next, hs_next = ((_ptr(post), None, None) if last
+                                    else (None, ptrs[i + 1][4], hs.data_ptr()))
+        out = torch.empty_like(x)
+        _check(lib.resunit_conv1(cur.data_ptr(), h2.data_ptr(), w1, b1, post_i, a1_next,
+                                 hs_next, out.data_ptr(), B, C, T, 0, *tile, stream),
+               "resunit_conv1")
+        launches += 1
+        cur = out
+    return cur
+
+
 def resunit_stack(units: Sequence[ResUnit], x: torch.Tensor,
                   dilations: Sequence[int] = DILATIONS,
                   post_alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -228,7 +292,6 @@ def resunit_stack(units: Sequence[ResUnit], x: torch.Tensor,
     snake ``post_alpha`` [C]. CUDA tensors go through the kernel (fp32 or
     bf16, contiguous, on the same device as the weights); CPU tensors through
     ``resunit_stack_ref``."""
-    global launches
     if x.device.type == "cpu":
         return resunit_stack_ref(units, x, dilations, post_alpha)
     if x.device.type != "cuda":
@@ -255,21 +318,4 @@ def resunit_stack(units: Sequence[ResUnit], x: torch.Tensor,
     with torch.no_grad():
         if x.dtype == torch.bfloat16:
             return _stack_bf16(lib, units, x, dils, post_alpha, stream)
-        for i, (u, d) in enumerate(zip(units, dils)):
-            w7, w1 = _f32(u.conv1.weight), _f32(u.conv2.weight)
-            b7, b1 = _f32(u.conv1.bias), _f32(u.conv2.bias)
-            a1, a2 = _f32(u.snake1.alpha), _f32(u.snake2.alpha)
-            h2 = torch.empty_like(x)
-            _check(lib.resunit_conv7(x.data_ptr(), w7.data_ptr(), b7.data_ptr(),
-                                     a1.data_ptr(), a2.data_ptr(), h2.data_ptr(),
-                                     B, C, T, d, 0, 0, 0, stream), "resunit_conv7")
-            launches += 1
-            post = (_f32(post_alpha) if post_alpha is not None
-                    and i == len(units) - 1 else None)
-            out = torch.empty_like(x)
-            _check(lib.resunit_conv1(x.data_ptr(), h2.data_ptr(), w1.data_ptr(),
-                                     b1.data_ptr(), _ptr(post), None, None, out.data_ptr(),
-                                     B, C, T, 0, 0, 0, stream), "resunit_conv1")
-            launches += 1
-            x = out
-    return x
+        return _stack_fp32(lib, units, x, dils, post_alpha, stream)

@@ -12,12 +12,14 @@ The channels-first K1 instead rounds its carry after every unit, so in bf16
 the two stacks differ on purpose, each following its own TPU kernel.
 
 ``resunit_stack_tm`` sends a CUDA tensor through ``csrc/resunit_stack_tm.cu``
-(fp32 on FFMA, two launches per unit; bf16 on the tensor cores through the
-product core ``csrc/resunit_mma.cuh`` that K1 shares, with the tile of
-``resunit.pick_tile``, two launches per unit and one prologue) and a CPU
-tensor through ``resunit_stack_tm_ref``. It never sends a CUDA tensor to the
-plain version: what the kernel does not take raises, a call that autograd
-would record included (``resunit.refuse_autograd``).
+(fp32 on FFMA through the product core ``csrc/resunit_ffma.cuh`` that K1
+shares, with the tile of ``resunit.pick_ffma_tile``, two launches per unit;
+bf16 on the tensor cores through the product core ``csrc/resunit_mma.cuh``
+that K1 shares, with the tile of ``resunit.pick_tile``, two launches per unit
+and one prologue) and a CPU tensor through ``resunit_stack_tm_ref``. It
+never sends a CUDA tensor to the plain version: what the kernel does not
+take raises, a call that autograd would record included
+(``resunit.refuse_autograd``).
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .resunit import (DILATIONS, ResUnit, _check, _f32, _ptr, pick_tile, prologue_ptrs,
-                      refuse_autograd, stack_ptrs)
+from .resunit import (DILATIONS, ResUnit, _check, _f32, _ptr, pick_ffma_tile, pick_tile,
+                      prologue_ptrs, refuse_autograd, stack_ptrs)
 from .timeconv import snake_tm
 
 # The TPU kernel's limits, which the wrapper keeps: its haloed window covers a
@@ -145,6 +147,39 @@ def _stack_tm_bf16(lib, units: Sequence[ResUnit], x_btc: torch.Tensor, dils: tup
     return out
 
 
+def _stack_tm_fp32(lib, units: Sequence[ResUnit], x_btc: torch.Tensor, dils: tuple,
+                   post_alpha: Optional[torch.Tensor], stream: int) -> torch.Tensor:
+    """The fp32 launches of one stack, two per unit, all [B, T, C] and the
+    carry fp32 throughout: unit 0's k=7 launch snakes x on the way in; each
+    k=1 launch but the last also writes the next unit's snaked operand hs,
+    which the next k=7 launch reads as it is."""
+    global launches
+    B, T, C = x_btc.shape
+    n = len(units)
+    tile = pick_ffma_tile(C, T, B)
+    kept, ptrs = stack_ptrs(units)      # kept alive until the launches are queued
+    post = _f32(post_alpha) if post_alpha is not None else None
+    hs = torch.empty_like(x_btc) if n > 1 else None
+    acc = x_btc
+    for i, d in enumerate(dils):
+        w7, b7, w1, b1, a1, a2 = ptrs[i]
+        h2 = torch.empty_like(x_btc)
+        src, a1_in = (x_btc.data_ptr(), a1) if i == 0 else (hs.data_ptr(), None)
+        _check(lib.resunit_tm_conv7(src, w7, b7, a1_in, a2, h2.data_ptr(), B, C, T, d, 0,
+                                    *tile, stream), "resunit_tm_conv7")
+        launches += 1
+        last = i == n - 1
+        post_i, a1_next, hs_next = ((_ptr(post), None, None) if last
+                                    else (None, ptrs[i + 1][4], hs.data_ptr()))
+        out = torch.empty_like(x_btc)
+        _check(lib.resunit_tm_conv1(acc.data_ptr(), 1, h2.data_ptr(), w1, b1, post_i,
+                                    a1_next, hs_next, out.data_ptr(), 1, B, C, T, 0, *tile,
+                                    stream), "resunit_tm_conv1")
+        launches += 1
+        acc = out
+    return acc
+
+
 def resunit_stack_tm(units: Sequence[ResUnit], x_btc: torch.Tensor,
                      dilations: Sequence[int] = DILATIONS,
                      post_alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -152,7 +187,6 @@ def resunit_stack_tm(units: Sequence[ResUnit], x_btc: torch.Tensor,
     trailing snake ``post_alpha`` [C]. CUDA tensors go through the kernel
     (fp32 or bf16, contiguous, on the same device as the weights); CPU
     tensors through ``resunit_stack_tm_ref``."""
-    global launches
     dils = _check_dilations(dilations, len(units))
     if x_btc.device.type == "cpu":
         return resunit_stack_tm_ref(units, x_btc, dils, post_alpha)
@@ -173,26 +207,7 @@ def resunit_stack_tm(units: Sequence[ResUnit], x_btc: torch.Tensor,
 
     lib = _lib()
     stream = torch.cuda.current_stream(x_btc.device).cuda_stream
-    acc = x_btc                  # the carry: x's dtype before unit 0, fp32 after
     with torch.no_grad():
         if x_btc.dtype == torch.bfloat16:
             return _stack_tm_bf16(lib, units, x_btc, dils, post_alpha, stream)
-        for i, (u, d) in enumerate(zip(units, dils)):
-            w7, w1 = _f32(u.conv1.weight), _f32(u.conv2.weight)
-            b7, b1 = _f32(u.conv1.bias), _f32(u.conv2.bias)
-            a1, a2 = _f32(u.snake1.alpha), _f32(u.snake2.alpha)
-            h2 = torch.empty_like(x_btc)
-            _check(lib.resunit_tm_conv7(acc.data_ptr(), w7.data_ptr(), b7.data_ptr(),
-                                        a1.data_ptr(), a2.data_ptr(), h2.data_ptr(), B, C,
-                                        T, d, 0, 0, 0, stream), "resunit_tm_conv7")
-            launches += 1
-            last = i == len(units) - 1
-            post = _f32(post_alpha) if last and post_alpha is not None else None
-            out = torch.empty_like(x_btc)
-            _check(lib.resunit_tm_conv1(acc.data_ptr(), 1, h2.data_ptr(), w1.data_ptr(),
-                                        b1.data_ptr(), _ptr(post), None, None,
-                                        out.data_ptr(), 1, B, C, T, 0, 0, 0, stream),
-                   "resunit_tm_conv1")
-            launches += 1
-            acc = out
-    return acc
+        return _stack_tm_fp32(lib, units, x_btc, dils, post_alpha, stream)

@@ -1,6 +1,8 @@
 """The residual-unit stack kernel (K1) on the card, against its plain version:
 bf16 on the tensor cores at the eight stack shapes of the default path and at
-ragged ones, fp32 on FFMA bit-equal to the plain version.
+ragged ones; fp32 on FFMA (csrc/resunit_ffma.cuh) bit-equal to the plain
+version at those shapes, at the trainers' batches 6 and 8 and at ragged
+shapes.
 
 Marked ``cuda``: each test skips without a card. The file imports neither jax
 nor the JAX package, so it also runs on a machine with the card, which has
@@ -106,12 +108,62 @@ def test_bf16_ragged_shapes(cuda, b, c, t):
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,t,post", MAIN_SHAPES)
 def test_fp32_ffma_bit_equal_to_plain_at_main_shapes(cuda, c, t, post):
-    """The fp32 path is unchanged: FFMA in cuDNN's sum order, bit-equal to the
-    plain version (TF32 off), which the fp32 code-equality gates rest on."""
+    """fp32 on FFMA sums each output in cuDNN's order (input channels, then
+    taps, ascending, the bias after), so it is bit-equal to the plain version
+    (TF32 off), which the fp32 code-equality gates rest on."""
     units = _units(c + 2, c, cuda)
     x = torch.randn(1, c, t, generator=torch.Generator().manual_seed(c)).to(cuda)
     pa = torch.full((c,), 0.8, device=cuda) if post else None
     got, ref = _run(units, x, pa)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [6, 8])
+@pytest.mark.parametrize("c,t,post", MAIN_SHAPES)
+def test_fp32_ffma_bit_equal_at_training_batches(cuda, b, c, t, post):
+    """The encoders' four stacks and the decoder's four at the head trainer's
+    batch 6 and the pretraining eval's batch 8: still bit-equal, whatever
+    algorithm cuDNN picks for the plain version's convolutions there."""
+    units = _units(c + b, c, cuda)
+    x = torch.randn(b, c, t, generator=torch.Generator().manual_seed(t + b)).to(cuda)
+    pa = torch.full((c,), 0.8, device=cuda) if post else None
+    got, ref = _run(units, x, pa)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,t", [(2, 96, 1000), (2, 5, 130), (3, 33, 1001), (1, 96, 77),
+                                   (2, 24, 20), (2, 8, 5), (1, 1, 600), (2, 20, 301),
+                                   (3, 70, 39)])
+def test_fp32_ragged_shapes(cuda, b, c, t):
+    """fp32 with C off every tile (96, 5, 33, 24, 1, 70), T off every tile,
+    odd (4-byte copies, T % 4 != 0) and under the stack's 39-step halo, B > 1:
+    bit-equal to the plain version."""
+    units = _units(c * t, c, cuda)
+    x = torch.randn(b, c, t, generator=torch.Generator().manual_seed(t)).to(cuda)
+    got, ref = _run(units, x, torch.full((c,), 1.2, device=cuda))
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_units", [1, 2, 3])
+@pytest.mark.parametrize("post", [False, True])
+def test_fp32_units_read_the_operand_conv1_wrote(cuda, n_units, post):
+    """Unit 0's k=7 launch snakes x while staging it; units 1 and 2 read the
+    snaked operand that the previous unit's k=1 launch wrote beside its
+    output. Stacks of 1, 2 and 3 units, with and without the trailing snake,
+    2 n launches each: bit-equal to the plain version."""
+    c, t = 128, 3000
+    units = _units(n_units, c, cuda)[:n_units]
+    x = torch.randn(2, c, t, generator=torch.Generator().manual_seed(n_units)).to(cuda)
+    pa = torch.full((c,), 0.9, device=cuda) if post else None
+    with torch.no_grad():
+        before = resunit.launches
+        got = resunit.resunit_stack(units, x, resunit.DILATIONS, pa)
+        assert resunit.launches == before + 2 * n_units
+        ref = resunit.resunit_stack_ref(units, x, resunit.DILATIONS, pa)
+    torch.cuda.synchronize()
     assert torch.equal(got, ref)
 
 

@@ -1,5 +1,6 @@
 """The time-major residual-unit stack kernel (K3) on the card, against its
-plain version: bf16 on the tensor cores, fp32 on FFMA.
+plain version: bf16 on the tensor cores, fp32 on FFMA (csrc/resunit_ffma.cuh,
+the core K1 shares).
 
 Marked ``cuda``: each test skips without a card. The file imports neither jax
 nor the JAX package, so it also runs on a machine with the card, which has
@@ -82,6 +83,67 @@ def test_bf16_ragged_shapes(cuda, b, c, t, n_units, post):
     torch.cuda.synchronize()
     err = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
     assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all()) and err <= 2e-2
+
+
+def _fp64_tm(units, x, dils, post_alpha):
+    """The stack on [B, T, C] in fp64 throughout (a yardstick for both fp32
+    versions' sums)."""
+    def sn(v, a):
+        a = a.double()
+        return v + torch.sin(a * v) ** 2 / (a + 1e-9)
+
+    x = x.double().transpose(1, 2)
+    for u, d in zip(units, dils):
+        h = sn(x.transpose(1, 2), u.snake1.alpha).transpose(1, 2)
+        acc = torch.nn.functional.conv1d(h, u.conv1.weight.double(), u.conv1.bias.double(),
+                                         dilation=d, padding=3 * d)
+        h2 = sn(acc.transpose(1, 2), u.snake2.alpha).transpose(1, 2)
+        x = x + torch.nn.functional.conv1d(h2, u.conv2.weight.double(), u.conv2.bias.double())
+    x = x.transpose(1, 2)
+    return x if post_alpha is None else sn(x, post_alpha)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,t,post", [(64, 24000, True), (128, 12000, True),
+                                      (192, 12000, False), (96, 24000, True)])
+def test_fp32_ffma_main_shapes_within_1e4(cuda, c, t, post):
+    """fp32 at K3's four stack shapes, batch 1: within 1e-4 of the plain
+    version and of an fp64 run of the stack (sum order only)."""
+    units = _units(c, c, 3, cuda)
+    x = torch.randn(1, t, c, generator=torch.Generator().manual_seed(t)).to(cuda)
+    pa = torch.full((c,), 0.8, device=cuda) if post else None
+    with torch.no_grad():
+        before = resunit_tm.launches
+        got = resunit_tm.resunit_stack_tm(units, x, resunit.DILATIONS, pa)
+        assert resunit_tm.launches == before + 6
+        ref = resunit_tm.resunit_stack_tm_ref(units, x, resunit.DILATIONS, pa)
+        exact = _fp64_tm(units, x, resunit.DILATIONS, pa)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    for yard in (ref.double(), exact):
+        assert float((got.double() - yard).abs().max() / yard.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,t,n_units,post", [
+    (2, 96, 1000, 3, True), (2, 5, 130, 1, True), (3, 33, 1001, 3, False),
+    (2, 24, 20, 3, True), (2, 40, 5, 3, False), (2, 20, 301, 2, True), (1, 1, 600, 3, True),
+])
+def test_fp32_ragged_shapes(cuda, b, c, t, n_units, post):
+    """fp32 on FFMA with C off every tile, T off every tile and under the
+    stack's 39-row halo, batch 2-3: within 1e-4 of the plain version."""
+    units = _units(c * t + 1, c, n_units, cuda)
+    x = torch.randn(b, t, c, generator=torch.Generator().manual_seed(c)).to(cuda)
+    pa = torch.full((c,), 1.2, device=cuda) if post else None
+    dils = resunit.DILATIONS[:n_units]
+    with torch.no_grad():
+        before = resunit_tm.launches
+        got = resunit_tm.resunit_stack_tm(units, x, dils, pa)
+        assert resunit_tm.launches == before + resunit.stack_launches(n_units, torch.float32)
+        ref = resunit_tm.resunit_stack_tm_ref(units, x, dils, pa)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert bool(torch.isfinite(got).all()) and err <= 1e-4
 
 
 @pytest.mark.cuda
