@@ -240,7 +240,44 @@ random ones made from ``--seed``. Phases, one line of numbers each:
    committed one, and K1's launches a call and the calls are gated as in
    phase 18 (nothing trains: the backbone is reused, the sweep's runs are
    trained, the PLC heads resume at their last epoch). Reported: the
-   largest deviation from the MANIFEST by tolerance class and the stages.
+   largest deviation from the MANIFEST by tolerance class and the stages;
+20. mesh: the data-parallel mesh (``parallel/mesh.py``) at world size 1 on
+   NCCL (``tcp://localhost``, a free port; NCCL takes one rank a card), so
+   every all-reduce, all-gather and broadcast is a real NCCL call. Gates:
+   the backend is NCCL; the full-width bf16 ``StreamingCodec`` bytes round
+   trip with ``mesh=`` launches K1 56 times an encode and a receiver decode
+   and gives the meshless call's codes, bytes and waveform exactly; one
+   batch-6 head train step of phase 14's configuration and corpus with the
+   mesh (48 K1 launches) gives the meshless step's metrics (losses and code
+   usage) bit for bit and its head within rtol 1e-3, atol 1e-4 (at most
+   1e-3 of a leaf's elements within Adam's 2 lr: the step's atomic sums, the
+   EMA's ``index_add_`` among them, are not bit-reproducible from run to run,
+   so two meshless steps differ too; their gap is reported); one
+   pretraining eval step (batch 8, full-width backbone, 48 K1 launches)
+   gives the meshless loss bit for bit. Reported: the encode's ms and the
+   train step's device ms (torch.profiler) with and without the mesh;
+21. dac_import: a seeded full-width ``DacConfig()`` backbone written as a
+   descript-audio-codec state dict (``descript_state_dict``: weight norm
+   split as ``weight_v`` = the weight and ``weight_g = ||v||``, the
+   up-convolutions in ``[C_in, C_out, k]``, the quantizer's projections as
+   1x1 convolutions) into ``build/chip_smoke_dac_import/``, read back by
+   ``models/dac_import.py::load_torch_dac`` (``weights_only=True``). Gates:
+   every weight within 2.5e-7 of its leaf's largest (``g * v / ||v||``
+   rounds to an ulp); the encode's codes through K1 in fp32 equal the
+   source backbone's (24 launches each; bf16's agreement reported: a
+   weight an ulp off can round to another bf16 value);
+22. tooling: ``StreamingCodec.cost_analysis`` (``utils/roofline.py``: FLOPs
+   by ``FlopCounterMode``, unfused bytes by a dispatch-mode counter, on the
+   plain path) of the bf16 encode and ``decode_from_codes`` at batch 1 and
+   32, each with ``summarize`` against its profiled device ms and the card's
+   peaks (``device_peaks``), and the closed-form encoder FLOPs
+   (``utils/flops.py``) beside them; the native range coder
+   (``eval/bitstream.py``, built from ``native/vcpwq`` into
+   ``build/vcpwq/``) on the default round trip's codes: bytes equal to the
+   pure coder's, each decoding the other's stream, and each one's host ms;
+   ``utils/profiling.py``'s ``trace`` of one bf16 encode under ``timed``
+   and ``annotate``, written under ``build/chip_smoke_trace/``: it holds
+   kernel events and the annotation.
 
 The card's machine has no matplotlib: there the demo draws no figure and
 says so in one line a set of figures; the model work behind each figure
@@ -271,12 +308,14 @@ import os
 from itertools import islice
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodal_vqvae_compression_audio_tactile_tpu_torch import _build
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.convert import (
@@ -322,6 +361,10 @@ from multimodal_vqvae_compression_audio_tactile_tpu_torch.plc import eval_catego
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.scripts import (
     demo_end_to_end, demo_eval_only, evidence_tiny)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.utils import artifacts
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.eval import bitstream
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.models import dac_import
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.parallel import mesh as pmesh
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.utils import flops, profiling, roofline
 
 # Published dense peaks of one H100 SXM at 700 W: fp32 outside the tensor
 # cores, bf16 in them, and HBM3 bandwidth.
@@ -2448,6 +2491,278 @@ def evidence_phase() -> None:
         stages=probe.stages, k1_per_call=per_call, wall_s=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------- 20-22: mesh, dac_import, tooling
+
+MESH_DIR = os.path.join(REPO, "build", "chip_smoke_mesh")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def head_gap(a: torch.nn.Module, b: torch.nn.Module, lr: float) -> dict:
+    """Two heads after one step from the same start: the largest absolute
+    gap, and whether every leaf lies within rtol 1e-3, atol 1e-4 but for at
+    most 1e-3 of its elements, which lie within Adam's 2 lr (an element
+    whose gradient is at the noise floor of the step's atomic sums, the EMA's
+    ``index_add_`` among them, can flip its update's sign)."""
+    worst, ok = 0.0, True
+    for x, y in zip(a.state_dict().values(), b.state_dict().values()):
+        d = (x.float() - y.float()).abs()
+        worst = max(worst, float(d.max()))
+        miss = d > 1e-4 + 1e-3 * y.float().abs()
+        ok &= bool(miss.float().mean() <= 1e-3) and bool((d[miss] <= 2 * lr).all())
+    return {"max_abs_gap": worst, "close": ok}
+
+
+def mesh_phase(m: allpred_ar.CodecModules, a, tc, ctx: dict, seed: int) -> None:
+    """The data-parallel mesh at world size 1 on NCCL; see the module
+    docstring (phase 20)."""
+    t_phase = time.perf_counter()
+    world = pmesh.distributed_init(f"tcp://localhost:{free_port()}", 1, 0,
+                                   device=torch.device("cuda", 0))
+    mesh = pmesh.create_mesh()
+    gate(world == 1 and mesh.backend == "nccl" and dist.get_backend() == "nccl"
+         and mesh.device.type == "cuda", f"mesh: backend {mesh.backend}, device {mesh.device}")
+    out: dict = {"backend": mesh.backend, "shape": mesh.shape}
+    try:
+        # serving: the bf16 bytes round trip, meshless and meshed
+        sc0 = StreamingCodec(m, batch=1, frame_sec=1.0)
+        sc1 = StreamingCodec(m, batch=1, frame_sec=1.0, mesh=mesh)
+        streams0, n0, _ = counted(lambda: sc0.encode_to_bytes(a, tc))
+        streams1, n1, _ = counted(lambda: sc1.encode_to_bytes(a, tc))
+        y1, n_dec, _ = counted(lambda: sc1.decode_from_bytes(a, streams1))
+        y0 = sc0.decode_from_bytes(a, streams0)
+        codes_eq = torch.equal(sc0.encode(a, tc)[1], sc1.encode(a, tc)[1])
+        want = expect(True, k1=8)
+        gate(n1 == want and n_dec == want and n0 == want,
+             f"mesh: launches meshed encode {n1} / decode {n_dec}, meshless {n0}; want {want}")
+        gate(codes_eq and streams0 == streams1 and torch.equal(y0, y1),
+             f"mesh: meshed serving differs: codes equal {codes_eq}, bytes equal "
+             f"{streams0 == streams1}, waveform equal {torch.equal(y0, y1)}")
+        out["serving"] = {"launches_encode": n1, "launches_decode": n_dec,
+                          "codes_equal": codes_eq, "bytes_equal": streams0 == streams1,
+                          "waveform_equal": torch.equal(y0, y1),
+                          "encode_ms_meshless": cuda_ms(lambda: sc0.encode(a, tc), reps=5),
+                          "encode_ms_mesh": cuda_ms(lambda: sc1.encode(a, tc), reps=5)}
+
+        # one batch-6 head train step, meshless and meshed, from the same head
+        cfg, tcfg, bb = ctx["cfg"], ctx["tcfg"], ctx["bb"]
+        ds = SegmentDataset(ctx["split"][0], sr=tcfg.target_sr, seg=tcfg.seg, seed=tcfg.seed)
+        batch_np = next(batch_iterator(ds, tcfg.batch, seed=seed))
+        xa, xt = (torch.from_numpy(x).cuda() for x in batch_np)
+        sa, st = pmesh.shard_batch(mesh, batch_np)
+
+        def fresh():
+            head = allpred_ar.head_init(cfg, torch.Generator().manual_seed(seed)).cuda()
+            return train_loop.TrainState(allpred_ar.codec_of(bb, bb, head, cfg),
+                                         train_loop.AdamW(train_loop.adamw_params(head), tcfg, 3))
+        with fp32_exact():
+            step0, _ = train_loop.make_step_fns(cfg, tcfg)
+            step1, _ = train_loop.make_step_fns(cfg, tcfg, mesh)
+            s0, s0b, s1 = fresh(), fresh(), fresh()
+            met0 = step0(s0, xa, xt, seed + 1, do_ema=True)
+            met0b = step0(s0b, xa, xt, seed + 1, do_ema=True)
+            met1, n_step, _ = counted(lambda: step1(s1, sa, st, seed + 1, do_ema=True))
+            train_eq = torch.equal(met0, met1)
+            gap, again = head_gap(s1.head, s0.head, tcfg.lr), head_gap(s0b.head, s0.head,
+                                                                        tcfg.lr)
+            gate(train_eq, f"mesh: the meshed train step's metrics differ: "
+                 f"{met0.tolist()} / {met1.tolist()}")
+            gate(gap["close"], f"mesh: the meshed step's head off the meshless one's: {gap}")
+            gate(n_step == expect(False, k1=8), f"mesh: launches a meshed train step {n_step}")
+            prof = profile_calls("mesh_train_step", {
+                "meshless": lambda: step0(s0, xa, xt, seed + 1, True),
+                "mesh": lambda: step1(s1, sa, st, seed + 1, True)})
+            out["train_step"] = {"batch": tcfg.batch, "loss": float(met1[0]),
+                                 "metrics_bit_equal": train_eq, "head_vs_meshless": gap,
+                                 "head_meshless_vs_meshless_again": again,
+                                 "metrics_meshless_again_bit_equal": torch.equal(met0, met0b),
+                                 "launches": n_step,
+                                 "device_ms_meshless": prof["meshless"]["device_ms"],
+                                 "device_ms_mesh": prof["mesh"]["device_ms"]}
+
+            # one pretraining eval step on a batch of 8 through the backbone
+            dcfg = cfg.dac
+            x = next(stream_pretrain_batches(8, seg=24000, sr=dcfg.sample_rate, seed=seed,
+                                             wire_i16=True))
+            _, ev0 = pb.make_pretrain_step(dcfg, tcfg)
+            _, ev1 = pb.make_pretrain_step(dcfg, tcfg, mesh=mesh)
+            v0 = ev0(bb, torch.from_numpy(x).cuda())
+            v1, n_ev, _ = counted(lambda: ev1(bb, pmesh.shard_batch(mesh, x)))
+            gate(torch.equal(v0, v1), f"mesh: pretraining eval loss {float(v1)} != "
+                 f"meshless {float(v0)}")
+            gate(n_ev == expect(False, k1=8), f"mesh: launches a meshed eval step {n_ev}")
+            out["pretrain_eval_step"] = {"batch": 8, "loss": float(v1),
+                                         "bit_equal": torch.equal(v0, v1), "launches": n_ev}
+    finally:
+        dist.destroy_process_group()
+    say("mesh", **out, wall_s=time.perf_counter() - t_phase)
+
+
+DAC_IMPORT_DIR = os.path.join(REPO, "build", "chip_smoke_dac_import")
+
+
+def descript_state_dict(m: dac.DAC) -> dict:
+    """``m`` as a descript-audio-codec state dict: weight-normalised
+    convolutions (``weight_v`` the weight, ``weight_g = ||v||`` per dim-0
+    row), the up-convolutions in ``[C_in, C_out, k]``, the quantizer's 1x1
+    projections as convolutions with their biases, Snake alphas [1, C, 1]."""
+    sd = {}
+
+    def conv(name, mod, weight=None):
+        v = (mod.weight if weight is None else weight).detach().float().cpu()
+        sd[name + ".weight_v"] = v
+        # ||v|| summed as the importer sums it, so that g * v / ||v|| is v to an ulp
+        sd[name + ".weight_g"] = torch.from_numpy(
+            np.sqrt((v.numpy() ** 2).sum(axis=(1, 2), keepdims=True)))
+        if weight is None:
+            sd[name + ".bias"] = mod.bias.detach().float().cpu()
+
+    def snake(name, s):
+        sd[name + ".alpha"] = s.alpha.detach().float().cpu().reshape(1, -1, 1)
+
+    def unit(name, u):
+        snake(f"{name}.block.0", u.snake1)
+        conv(f"{name}.block.1", u.conv1)
+        snake(f"{name}.block.2", u.snake2)
+        conv(f"{name}.block.3", u.conv2)
+
+    enc, dec, q = m.encoder, m.decoder, m.quantizer
+    conv("encoder.block.0", enc.in_conv)
+    for i, b in enumerate(enc.blocks, start=1):
+        for j, u in enumerate(b.units):
+            unit(f"encoder.block.{i}.block.{j}", u)
+        snake(f"encoder.block.{i}.block.3", b.snake)
+        conv(f"encoder.block.{i}.block.4", b.down)
+    snake(f"encoder.block.{len(enc.blocks) + 1}", enc.out_snake)
+    conv(f"encoder.block.{len(enc.blocks) + 2}", enc.out_conv)
+    conv("decoder.model.0", dec.in_conv)
+    for i, b in enumerate(dec.blocks, start=1):
+        snake(f"decoder.model.{i}.block.0", b.snake)
+        conv(f"decoder.model.{i}.block.1", b.up)          # already [C_in, C_out, k]
+        for j, u in zip((2, 3, 4), b.units):
+            unit(f"decoder.model.{i}.block.{j}", u)
+    snake(f"decoder.model.{len(dec.blocks) + 1}", dec.out_snake)
+    conv(f"decoder.model.{len(dec.blocks) + 2}", dec.out_conv)
+    for i in range(q.codebooks.shape[0]):
+        p = f"quantizer.quantizers.{i}"
+        conv(f"{p}.in_proj", None, q.in_proj[i].T[:, :, None])
+        sd[f"{p}.in_proj.bias"] = q.in_bias[i].detach().float().cpu()
+        conv(f"{p}.out_proj", None, q.out_proj[i].T[:, :, None])
+        sd[f"{p}.out_proj.bias"] = q.out_bias[i].detach().float().cpu()
+        sd[f"{p}.codebook.weight"] = q.codebooks[i].detach().float().cpu()
+    return sd
+
+
+def dac_import_phase(seed: int, a) -> None:
+    """The descript weight import at full width; see the module docstring
+    (phase 21)."""
+    t_phase = time.perf_counter()
+    cfg = DacConfig()
+    src = dac.init_dac_(dac.DAC(cfg), torch.Generator().manual_seed(seed + 21))
+    shutil.rmtree(DAC_IMPORT_DIR, ignore_errors=True)
+    os.makedirs(DAC_IMPORT_DIR)
+    path = os.path.join(DAC_IMPORT_DIR, "dac_descript.pth")
+    sd = descript_state_dict(src)
+    torch.save({"state_dict": sd, "metadata": {"kwargs": {"sample_rate": cfg.sample_rate}}},
+               path)
+    t0 = time.perf_counter()
+    got = dac_import.load_torch_dac(path, cfg)
+    load_s = time.perf_counter() - t0
+    # the weights through g * v / ||v||: each within an ulp of the source's
+    w_err = max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                for x, y in zip(got.state_dict().values(), src.state_dict().values()))
+    src, got = src.cuda().requires_grad_(False), got.cuda().requires_grad_(False)
+    x = torch.from_numpy(a).cuda()
+    res = {}
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        (_, c_src), n_src, _ = counted(lambda: dac.encode_quantized(src, cfg, x.to(dt)))
+        (_, c_got), n_got, _ = counted(lambda: dac.encode_quantized(got, cfg, x.to(dt)))
+        res[name] = {"codes_equal": torch.equal(c_src, c_got),
+                     "code_agreement": float((c_src == c_got).float().mean()),
+                     "launches": n_got}
+        want = expect(dt == torch.bfloat16, k1=4)
+        gate(n_src == want and n_got == want, f"dac_import: {name} launches {n_got}, want {want}")
+    gate(res["fp32"]["codes_equal"], "dac_import: the imported backbone's fp32 codes differ "
+         f"from the source's ({res['fp32']['code_agreement']:.4f} agree)")
+    gate(w_err < 2.5e-7, f"dac_import: imported weights off the source's by {w_err:.3e}")
+    say("dac_import", entries=len(sd), file_bytes=os.path.getsize(path), load_s=load_s,
+        weight_max_rel_err=w_err, **res, wall_s=time.perf_counter() - t_phase)
+
+
+TRACE_DIR = os.path.join(REPO, "build", "chip_smoke_trace")
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def tooling_phase(m: allpred_ar.CodecModules, a, tc, default: dict) -> None:
+    """FLOP and byte counts with their roofline, the native range coder and
+    a trace; see the module docstring (phase 22)."""
+    t_phase = time.perf_counter()
+    peaks = roofline.device_peaks()
+    cfg = m.cfg
+    out: dict = {"peaks": peaks}
+    for b in (1, 32):
+        sc = StreamingCodec(m, batch=b, frame_sec=1.0)
+        rng = np.random.default_rng(b)
+        xa, xt = (torch.from_numpy((0.1 * rng.standard_normal((b, 1, 24000))).astype(np.float32)
+                                   ).cuda() for _ in range(2))
+        _, codes = sc.encode(xa, xt)
+        cost = sc.cost_analysis()
+        calls = {"encode": lambda: sc.encode(xa, xt),
+                 "decode_from_codes": lambda: sc.decode_from_codes(xa, codes)}
+        for name, fn in calls.items():
+            ms = device_ms(fn, reps=5)
+            c = cost[name]
+            gate(np.isfinite(c["flops"]) and c["flops"] > 0 and np.isfinite(c["bytes"]),
+                 f"tooling: cost_analysis {name} b{b}: {c}")
+            out[f"{name}_b{b}"] = {**c, "device_ms": ms,
+                                   **roofline.summarize(c["flops"], c["bytes"], ms, peaks=peaks)}
+        front = flops.codec_encode_front_flops(cfg, 24000, b)
+        out[f"encode_b{b}"]["encoder_front_flops_closed_form"] = front
+    codes = default["bf16"]["codes"][0]
+    native = bitstream.pack_codes(codes, cfg.rvq.n_embed)
+    pure = bitstream.pack_codes(codes, cfg.rvq.n_embed, force_python=True)
+    back = bitstream.unpack_codes(native)
+    gate(native == pure and np.array_equal(back, codes)
+         and np.array_equal(bitstream.unpack_codes(native, force_python=True), codes),
+         "tooling: the native coder's bytes differ from the pure coder's")
+    out["coder"] = {
+        "bytes_equal": native == pure, "bytes": len(native),
+        "pack_native_ms": host_ms(lambda: bitstream.pack_codes(codes, cfg.rvq.n_embed)),
+        "pack_python_ms": host_ms(lambda: bitstream.pack_codes(codes, cfg.rvq.n_embed,
+                                                               force_python=True), reps=5),
+        "unpack_native_ms": host_ms(lambda: bitstream.unpack_codes(native)),
+        "unpack_python_ms": host_ms(lambda: bitstream.unpack_codes(native, force_python=True),
+                                    reps=5)}
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    timings: dict = {}
+    sc = default["bf16"]["codec"]
+    with profiling.trace(TRACE_DIR) as prof:
+        with profiling.timed("encode", timings, log=lambda s: None):
+            with profiling.annotate("chip_smoke_encode"):
+                sc.encode(a, tc)
+    with open(os.path.join(TRACE_DIR, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    named = any(e.get("name") == "chip_smoke_encode" for e in events)
+    gate(kernels > 0 and named, f"tooling: trace has {kernels} kernel events, annotation {named}")
+    out["trace"] = {"path": os.path.relpath(TRACE_DIR, REPO), "events": len(events),
+                    "kernel_events": kernels, "annotation_found": named,
+                    "timed_ms": timings["encode"][0],
+                    "cuda_time_us": sum(e.device_time_total for e in prof.key_averages())}
+    say("tooling", **out, wall_s=time.perf_counter() - t_phase)
+
+
 def tree_at(tree, path):
     for k in path:
         tree = tree[k]
@@ -2593,6 +2908,9 @@ def main() -> int:
     pretrain_phase(args.seed)
     demo_phase()
     evidence_phase()
+    mesh_phase(m, a, tc, ctx, args.seed)
+    dac_import_phase(args.seed, a)
+    tooling_phase(m, a, tc, default)
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} gate(s) failed", file=sys.stderr)
         return 1

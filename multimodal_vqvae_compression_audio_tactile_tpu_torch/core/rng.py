@@ -8,6 +8,11 @@ seeded with the folded value on an explicit device, so a CUDA draw comes
 from a CUDA generator. The same seed and tags give the same draws on one
 device type; they are not the JAX package's threefry bits, and no test holds
 them to be.
+
+``BatchShard`` is a generator's draws over a batch axis on one rank of a
+data-parallel mesh (``parallel/mesh.py``): ``rand`` and ``randint`` draw the
+global batch's tensor from the shared generator and keep this rank's rows,
+so a sharded step draws what the step over the whole batch draws.
 """
 
 from __future__ import annotations
@@ -40,3 +45,35 @@ def generator(seed: int = DEFAULT_SEED, *tags: int, device="cpu") -> torch.Gener
     g = torch.Generator(device=device)
     g.manual_seed(fold(seed, *tags))
     return g
+
+
+class BatchShard:
+    """``gen``'s draws over a leading batch axis split into ``count`` equal
+    shards, of which this rank holds shard ``index``."""
+
+    def __init__(self, gen: torch.Generator, index: int, count: int):
+        self.gen, self.index, self.count = gen, index, count
+
+    @property
+    def device(self) -> torch.device:
+        return self.gen.device
+
+
+def _draw(fn, shape, gen, device):
+    if isinstance(gen, BatchShard):
+        b = shape[0]
+        full = fn((b * gen.count, *shape[1:]), gen.gen, device)
+        return full[gen.index * b:(gen.index + 1) * b]
+    return fn(tuple(shape), gen, device)
+
+
+def rand(shape, gen, device=None) -> torch.Tensor:
+    """``torch.rand(shape)`` from ``gen`` (a generator or a ``BatchShard``,
+    whose draw is the global batch's, this shard's rows kept)."""
+    return _draw(lambda s, g, d: torch.rand(s, generator=g, device=d), shape, gen, device)
+
+
+def randint(low: int, high: int, shape, gen, device=None) -> torch.Tensor:
+    """``torch.randint(low, high, shape)`` from ``gen``, as ``rand``."""
+    return _draw(lambda s, g, d: torch.randint(low, high, s, generator=g, device=d), shape,
+                 gen, device)

@@ -1,13 +1,23 @@
 """RVQ code bitstream: transmitted indices <-> bytes (adaptive range coder).
 
-Own copy of the pure-Python coder of the JAX package's ``eval/bitstream.py``
-(an LZMA-style adaptive binary range coder with per-book bit-tree contexts,
-'RVQ1' stream format), whose streams are byte-identical to that package's.
-At 75 tokens/s x 8 books a second of codes is 600 symbols, which the pure
-coder packs in milliseconds.
+The port of the JAX package's ``eval/bitstream.py``: an LZMA-style adaptive
+binary range coder with per-book bit-tree contexts, 'RVQ1' stream format.
+Two implementations with byte-identical streams, as there:
+
+- native: ``native/vcpwq/rvqpack.cpp`` through ``ctypes``, from the shared
+  library that ``eval/vcpwq.py::build_library`` compiles into
+  ``build/vcpwq/libvcpwq.so`` at first use (``native/`` stays untouched). A
+  build that fails raises with the compiler's message;
+- pure Python (this file): ``force_python=True``, and the oracle the
+  native streams are checked against. ``peek`` is pure Python always.
+
+At 75 tokens/s x 8 books a second of codes is 600 symbols: host time only.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Optional
 
 import numpy as np
 
@@ -17,6 +27,26 @@ _PROB_INIT = _PROB_MAX >> 1
 _MOVE_BITS = 5
 _TOP = 1 << 24
 _MASK32 = 0xFFFFFFFF
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _native_lib() -> ctypes.CDLL:
+    """The range coder's shared library, built at first use and bound once;
+    raises where it cannot be built."""
+    global _lib
+    if _lib is None:
+        from .vcpwq import build_library
+
+        lib = ctypes.CDLL(build_library())
+        u8, i32 = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32)
+        lib.rvq_pack.restype = ctypes.c_int64
+        lib.rvq_pack.argtypes = [i32, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, u8,
+                                 ctypes.c_int64]
+        lib.rvq_unpack.restype = ctypes.c_int64
+        lib.rvq_unpack.argtypes = [u8, ctypes.c_int64, i32, ctypes.c_int64]
+        _lib = lib
+    return _lib
 
 
 class _Encoder:
@@ -102,9 +132,10 @@ def _log2i(k: int) -> int:
     return n
 
 
-def pack_codes(codes: np.ndarray, K: int) -> bytes:
+def pack_codes(codes: np.ndarray, K: int, force_python: bool = False) -> bytes:
     """codes [T, n_books] (or [B, T, n_books], batch concatenated token-major)
-    int in [0, K) -> entropy-coded bytes ('RVQ1' stream)."""
+    int in [0, K) -> entropy-coded bytes ('RVQ1' stream), by the native coder
+    unless ``force_python``."""
     codes = np.asarray(codes, np.int32)
     if codes.ndim == 3:
         codes = codes.reshape(-1, codes.shape[-1])
@@ -114,6 +145,21 @@ def pack_codes(codes: np.ndarray, K: int) -> bytes:
         raise ValueError(f"K must be a power of two, got {K}")
     if codes.size and (codes.min() < 0 or codes.max() >= K):
         raise ValueError("code index out of range")
+    if force_python:
+        return _pack_py(codes, K)
+    lib = _native_lib()
+    T, n_books = codes.shape
+    cap = 12 + T * n_books * 4 + 1024
+    out = np.zeros(cap, np.uint8)
+    codes_c = np.ascontiguousarray(codes)
+    n = lib.rvq_pack(codes_c.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), T, n_books, K,
+                     out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap)
+    if n < 0:
+        raise RuntimeError(f"rvq_pack failed: {n}")
+    return out[:n].tobytes()
+
+
+def _pack_py(codes: np.ndarray, K: int) -> bytes:
     T, n_books = codes.shape
     n_bits = _log2i(K)
     enc = _Encoder()
@@ -132,8 +178,23 @@ def pack_codes(codes: np.ndarray, K: int) -> bytes:
     return bytes(head) + bytes(enc.out)
 
 
-def unpack_codes(data: bytes) -> np.ndarray:
-    """'RVQ1' bytes -> codes [T, n_books] int32."""
+def unpack_codes(data: bytes, force_python: bool = False) -> np.ndarray:
+    """'RVQ1' bytes -> codes [T, n_books] int32, by the native coder unless
+    ``force_python``."""
+    T, n_books, _ = peek(data)
+    if force_python:
+        return _unpack_py(data)
+    buf = np.frombuffer(data, np.uint8)
+    out = np.zeros(T * n_books, np.int32)
+    m = _native_lib().rvq_unpack(buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                                 len(data), out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                                 out.size)
+    if m != T * n_books:
+        raise RuntimeError(f"rvq_unpack failed: {m}")
+    return out.reshape(T, n_books)
+
+
+def _unpack_py(data: bytes) -> np.ndarray:
     T, n_books, K = peek(data)
     n_bits = _log2i(K)
     dec = _Decoder(data[12:])

@@ -41,6 +41,13 @@ and by the host clock on the CPU, which computes synchronously;
 measure_device_ms``): on the card, replays of one call captured as a CUDA
 graph, so that it reads the device's time of a call as the JAX package's
 one-program chain does; on the CPU, eager calls by the host clock.
+
+``mesh=`` (``parallel/mesh.py``) serves over a data-parallel mesh: the
+modules are replicated from rank 0, every rank is given the same global
+batch, runs its rows (through K1/K3 on its card) and all-gathers the
+latents, codes and waveforms, so every rank returns the global result.
+``batch`` must divide the mesh's batch shards. ``device_time_ms`` and
+``cost_analysis`` measure one rank's rows.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ import torch
 from ..core.config import CodecConfig
 from ..core.precision import fp32_exact
 from ..models import allpred_ar, ar_parallel
+from ..parallel import mesh as pmesh
 from ..plc import model as plc_model
 from . import bitstream
 
@@ -87,7 +95,32 @@ def mean_ms(fn: Callable[[], object], device: torch.device, repeats: int) -> flo
     return (time.perf_counter() - t0) * 1e3 / repeats
 
 
-class StreamingCodec:
+class _Sharded:
+    """The mesh plumbing the two serving wrappers share: the device, this
+    rank's rows of a global batch, and the gather back."""
+
+    def _place(self, modules, batch: int, device, mesh: Optional[pmesh.Mesh]):
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.local_batch = batch
+            return modules.to(self.device).eval()
+        if batch % mesh.batch_shards:
+            raise ValueError(f"batch {batch} not divisible by data axis {mesh.batch_shards}")
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        self.device = mesh.device
+        self.local_batch = batch // mesh.batch_shards
+        return pmesh.shard_replicated(mesh, modules).eval()
+
+    def _mine(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.mesh is None else x[self.mesh.rows(x.shape[0])]
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.mesh is None else pmesh.all_gather_batch(self.mesh, x)
+
+
+class StreamingCodec(_Sharded):
     """Encode/decode over fixed batched shapes; the warm-up runs once here."""
 
     def __init__(self, modules: allpred_ar.CodecModules, batch: int,
@@ -98,7 +131,8 @@ class StreamingCodec:
                  time_major: Optional[bool] = None,
                  tail_kernel: Optional[bool] = None,
                  time_major_enc: Optional[bool] = None,
-                 parallel_roll: Optional[bool] = None):
+                 parallel_roll: Optional[bool] = None,
+                 mesh: Optional[pmesh.Mesh] = None):
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"StreamingCodec: unsupported compute_dtype {compute_dtype}")
         self.parallel_roll = bool(parallel_roll)
@@ -108,14 +142,13 @@ class StreamingCodec:
         else:
             self._encode = allpred_ar.encode_latents
             self._decode_codes = allpred_ar.decode_from_codes
-        self.device = resolve_device(device)
         cfg: CodecConfig = modules.cfg
         cfg = cfg.fast_serving() if fast else cfg
         self.cfg = dataclasses.replace(cfg, dac=dataclasses.replace(
             cfg.dac, poly_upsample=bool(poly_upsample), time_major=bool(time_major),
             tail_kernel=bool(tail_kernel), time_major_enc=bool(time_major_enc)))
         self.dtype = compute_dtype
-        self.modules = modules.to(self.device).eval()
+        self.modules = self._place(modules, batch, device, mesh)
         self.batch = batch
         self.frame = int(frame_sec * cfg.dac.sample_rate)
         self.n_books_use = n_books_use or cfg.rvq.n_books
@@ -130,24 +163,34 @@ class StreamingCodec:
                              f"{tuple(t.shape)}")
         return t.to(self.dtype)
 
-    def encode(self, a, tc):
-        """audio, tactile [batch, 1, frame] -> (z_run [batch, C, T_lat] in the
-        compute dtype, codes [batch, T_lat, n_books_use] int32)."""
-        return self._encode(self.modules, self._put(a), self._put(tc),
-                            n_books_use=self.n_books_use, cfg=self.cfg)
+    def _encode_rows(self, a: torch.Tensor, tc: torch.Tensor) -> tuple:
+        return self._encode(self.modules, a, tc, n_books_use=self.n_books_use, cfg=self.cfg)
 
     @torch.no_grad()
-    def decode(self, z_run: torch.Tensor) -> torch.Tensor:
-        """Latent stream -> tactile waveform [batch, 1, frame] (fp32)."""
+    def _decode_rows(self, z_run: torch.Tensor) -> torch.Tensor:
         with fp32_exact(self.dtype == torch.float32):
             return self.modules.tactile_dac.decoder(z_run.to(self.dtype),
                                                     self.cfg.dac).float()
+
+    def _decode_codes_rows(self, a: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+        return self._decode_codes(self.modules, a, codes, cfg=self.cfg).float()
+
+    def encode(self, a, tc):
+        """audio, tactile [batch, 1, frame] -> (z_run [batch, C, T_lat] in the
+        compute dtype, codes [batch, T_lat, n_books_use] int32)."""
+        z_run, codes = self._encode_rows(self._mine(self._put(a)), self._mine(self._put(tc)))
+        return self._gather(z_run), self._gather(codes)
+
+    def decode(self, z_run: torch.Tensor) -> torch.Tensor:
+        """Latent stream -> tactile waveform [batch, 1, frame] (fp32)."""
+        return self._gather(self._decode_rows(self._mine(z_run.to(self.device))))
 
     def decode_from_codes(self, a, codes) -> torch.Tensor:
         """Receiver: audio [batch, 1, frame] + codes [batch, T_lat, n] ->
         tactile waveform [batch, 1, frame] (fp32)."""
         codes = torch.as_tensor(codes, dtype=torch.int32, device=self.device)
-        return self._decode_codes(self.modules, self._put(a), codes, cfg=self.cfg).float()
+        return self._gather(self._decode_codes_rows(self._mine(self._put(a)),
+                                                    self._mine(codes)))
 
     def encode_to_bytes(self, a, tc) -> List[bytes]:
         """Transmitter: waveforms -> one 'RVQ1' byte stream per batch element."""
@@ -172,6 +215,23 @@ class StreamingCodec:
                 "decode_frames_per_sec": self.batch / (dec / 1e3),
                 "encode_ms_per_batch": enc, "decode_ms_per_batch": dec}
 
+    def cost_analysis(self) -> dict:
+        """FLOPs and bytes of one encode, one ``decode(z_run)`` (the tactile
+        decoder alone) and one ``decode_from_codes`` at this wrapper's shapes
+        (one rank's rows with a mesh), counted by ``utils/roofline.py::
+        compiled_cost`` on the plain path: {"encode": {"flops", "bytes"},
+        "decode": {...}, "decode_from_codes": {...}}; a field that cannot be
+        counted is NaN."""
+        from ..utils import roofline
+
+        zeros = torch.zeros(self.local_batch, 1, self.frame, device=self.device,
+                            dtype=self.dtype)
+        z_run, codes = self._encode_rows(zeros, zeros)
+        return {"encode": roofline.compiled_cost(self._encode_rows, zeros, zeros),
+                "decode": roofline.compiled_cost(self._decode_rows, z_run),
+                "decode_from_codes": roofline.compiled_cost(self._decode_codes_rows, zeros,
+                                                            codes)}
+
     def device_time_ms(self, n_lo: int = 4, n_hi: int = 16, reps: int = 3) -> dict:
         """Device time of one encode and of one ``decode(z_run)`` (the
         tactile decoder alone) in a chain of calls, by the slope between
@@ -187,19 +247,19 @@ class StreamingCodec:
         from . import latency
 
         rng = np.random.default_rng(3)
-        a0, t0 = (self._put((0.1 * rng.standard_normal((self.batch, 1, self.frame))
-                             ).astype(np.float32)) for _ in range(2))
+        a0, t0 = (self._mine(self._put(
+            (0.1 * rng.standard_normal((self.batch, 1, self.frame))).astype(np.float32)))
+            for _ in range(2))
 
         def encode(a, tc):
-            return self._encode(self.modules, a, tc, n_books_use=self.n_books_use,
-                                cfg=self.cfg)[0]
+            return self._encode_rows(a, tc)[0]
 
         def enc_step(a, tc):
             d = 1e-6 * torch.tanh(encode(a, tc).float().mean())
             return (tc + d).to(a.dtype)
 
         def dec_step(z, zb):
-            d = 1e-6 * torch.tanh(self.decode(z).mean())
+            d = 1e-6 * torch.tanh(self._decode_rows(z).mean())
             return (zb + d).to(z.dtype)
 
         z0 = encode(a0, t0)
@@ -209,12 +269,13 @@ class StreamingCodec:
                                                    const_args=(z0,), device=self.device)}
         for k in ("encode", "decode"):
             ms = out[k]["ms_per_call"]
-            out[f"{k}_frames_per_sec"] = self.batch / (ms / 1e3) if ms > 0 else float("nan")
+            out[f"{k}_frames_per_sec"] = (self.local_batch / (ms / 1e3) if ms > 0
+                                          else float("nan"))
             out[f"{k}_ms_per_batch"] = ms
         return out
 
 
-class StreamingConcealer:
+class StreamingConcealer(_Sharded):
     """Packet-loss concealment over fixed batched shapes: audio + the received
     tactile latent stream (lost tokens zeroed) + the loss mask -> the concealed
     tactile waveform (``plc/model.py::conceal``). The warm-up runs once here.
@@ -223,17 +284,16 @@ class StreamingConcealer:
     def __init__(self, modules: plc_model.PLCModules, batch: int, frame_sec: float = 1.0,
                  mask_embed: bool = False, compute_dtype: torch.dtype = torch.bfloat16,
                  fast: bool = True, device=None, poly_upsample: Optional[bool] = None,
-                 time_major: Optional[bool] = None):
+                 time_major: Optional[bool] = None, mesh: Optional[pmesh.Mesh] = None):
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"StreamingConcealer: unsupported compute_dtype {compute_dtype}")
-        self.device = resolve_device(device)
         cfg: CodecConfig = modules.cfg
         cfg = cfg.fast_serving() if fast else cfg
         self.cfg = dataclasses.replace(cfg, dac=dataclasses.replace(
             cfg.dac, poly_upsample=bool(poly_upsample), time_major=bool(time_major)))
         self.dtype = compute_dtype
         self.mask_embed = mask_embed
-        self.modules = modules.to(self.device).eval()
+        self.modules = self._place(modules, batch, device, mesh)
         self.batch = batch
         self.frame = int(frame_sec * cfg.dac.sample_rate)
         self.t_lat = self.frame // cfg.dac.hop
@@ -258,8 +318,9 @@ class StreamingConcealer:
         zt = self._put(zt_received, (self.batch, self.cfg.dac.latent_dim, self.t_lat),
                        self.dtype)
         m = self._put(mask_tokens, (self.batch, self.t_lat), torch.bool)
-        return plc_model.conceal(self.modules, a, zt, m, mask_embed=self.mask_embed,
-                                 cfg=self.cfg).float()
+        return self._gather(plc_model.conceal(
+            self.modules, self._mine(a), self._mine(zt), self._mine(m),
+            mask_embed=self.mask_embed, cfg=self.cfg).float())
 
     def throughput_frames_per_sec(self, repeats: int = 20) -> dict:
         """Frames per second and ms per batch of ``conceal``, on zero inputs

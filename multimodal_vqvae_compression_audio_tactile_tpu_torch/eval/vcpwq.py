@@ -15,6 +15,9 @@ Host code throughout.
 ``main.cpp``, ``vcpwq.cpp``, ``rvqpack.cpp``) with ``g++ -O3 -std=c++17``
 into ``build/vcpwq/vcpwq_codec`` at first use, leaving ``native/``
 untouched; ``code_corpus`` runs it over a directory of tactile files.
+``build_library`` compiles ``vcpwq.cpp`` and ``rvqpack.cpp`` the same way
+into the shared library ``build/vcpwq/libvcpwq.so`` (``-shared -fPIC``),
+whose range coder ``eval/bitstream.py`` calls.
 """
 
 from __future__ import annotations
@@ -42,30 +45,43 @@ BUILD_DIR = os.path.join(os.path.dirname(_build.BUILD_DIR), "vcpwq")
 CXX_FLAGS = ["-O3", "-std=c++17"]
 
 
-def build_codec() -> str:
-    """The path of ``build/vcpwq/vcpwq_codec``, compiled first if it is
-    missing or older than a source or header. The compiler writes to a
-    temporary name that is renamed into place; a failed build raises."""
-    exe = os.path.join(BUILD_DIR, "vcpwq_codec")
-    deps = [os.path.join(NATIVE_DIR, f) for f in SOURCES + HEADERS]
-    if os.path.exists(exe) and all(os.path.getmtime(exe) >= os.path.getmtime(f) for f in deps):
-        return exe
+def _compile(target: str, sources, flags) -> str:
+    """``build/vcpwq/<target>`` from ``native/vcpwq/<sources>``, compiled
+    first if it is missing or older than a source or header. The compiler
+    writes to a temporary name that is renamed into place; a failed build
+    raises with the compiler's message."""
+    out = os.path.join(BUILD_DIR, target)
+    srcs = [os.path.join(NATIVE_DIR, f) for f in sources]
+    deps = srcs + [os.path.join(NATIVE_DIR, f) for f in HEADERS]
+    if os.path.exists(out) and all(os.path.getmtime(out) >= os.path.getmtime(f) for f in deps):
+        return out
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the VC-PWQ codec is built from native/vcpwq")
+        raise RuntimeError(f"g++ not found: {target} is built from native/vcpwq")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{exe}.{os.getpid()}.tmp"
+    tmp = f"{out}.{os.getpid()}.tmp"
     try:
-        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, *deps[:len(SOURCES)]],
+        proc = subprocess.run([cxx, *CXX_FLAGS, *flags, "-o", tmp, *srcs],
                               capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(f"g++ failed ({proc.returncode}) on native/vcpwq:\n"
                                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, exe)
+        os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return exe
+    return out
+
+
+def build_codec() -> str:
+    """The path of ``build/vcpwq/vcpwq_codec`` (``_compile``)."""
+    return _compile("vcpwq_codec", SOURCES, [])
+
+
+def build_library() -> str:
+    """The path of ``build/vcpwq/libvcpwq.so``, the codec's library with
+    the range coder's C interface (``_compile``)."""
+    return _compile("libvcpwq.so", SOURCES[1:], ["-shared", "-fPIC"])
 
 
 def code_corpus(tact_dir: str, dec_dir: str, comp_dir: str, b_list: Sequence[int],

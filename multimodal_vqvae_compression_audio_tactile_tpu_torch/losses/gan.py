@@ -28,6 +28,7 @@ from torch import nn
 from ..core.config import GanConfig
 from ..core.precision import fp32_exact
 from ..dsp.stft import stft_complex
+from ..parallel.mesh import batch_mean
 
 MPD_CHANNELS = (32, 128, 512, 1024)
 MSTFT_CHANNELS = 32
@@ -185,12 +186,14 @@ def gen_adv_loss(fake_logits: Sequence[torch.Tensor], kind: str = "hinge") -> to
 
 def feature_matching_loss(real_feats: List[List[torch.Tensor]],
                           fake_feats: List[List[torch.Tensor]]) -> torch.Tensor:
-    """Mean over every map of L1(real, fake) / (mean |real| + 1e-6)."""
+    """Mean over every map of L1(real, fake) / (mean |real| + 1e-6), both
+    means over the global batch inside ``parallel/mesh.py::batch_scope``."""
     total, count = None, 0
     for rf, ff in zip(real_feats, fake_feats):
         for r, f in zip(rf, ff):
             r32, f32 = r.float(), f.float()
-            term = torch.mean(torch.abs(r32 - f32)) / (torch.mean(torch.abs(r32)) + 1e-6)
+            term = (batch_mean(torch.mean(torch.abs(r32 - f32)))
+                    / (batch_mean(torch.mean(torch.abs(r32))) + 1e-6))
             total = term if total is None else total + term
             count += 1
     return total / max(count, 1)

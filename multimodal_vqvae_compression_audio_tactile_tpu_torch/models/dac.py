@@ -49,6 +49,7 @@ from ..ops import timeconv as tc
 from ..ops.resunit import DILATIONS, ResUnit, Snake, resunit_stack, resunit_stack_ref
 from ..ops.resunit_tm import resunit_stack_tm
 from ..ops.rvq import track_counts_and_reinit
+from ..parallel.mesh import batch_mean
 
 NARROW = 256     # stacks narrower than this take K3 under ``tail_kernel``
 
@@ -325,6 +326,8 @@ class Quantizer(nn.Module):
         a gradient. ``nq_per_example`` [B] (quantizer dropout): example b's
         z_q sums only its first ``nq_per_example[b]`` books, and both losses
         count only those (example, book) pairs, renormalised by their share.
+        Inside ``parallel/mesh.py::batch_scope`` both losses and the share are
+        the global batch's.
         The values equal ``quantize``'s; ``quantize`` itself stays the
         serving path, which autograd must not train."""
         n_books = self.codebooks.shape[0]
@@ -343,9 +346,9 @@ class Quantizer(nn.Module):
                 active, frac = 1.0, 1.0
             else:
                 hit = (i < w_tok).float()
-                active, frac = hit[:, None], hit.mean() + 1e-9
-            commit = commit + torch.mean(active * (e - q_cd.detach()) ** 2) / frac
-            codebk = codebk + torch.mean(active * (e.detach() - q_cd) ** 2) / frac
+                active, frac = hit[:, None], batch_mean(hit.mean()) + 1e-9
+            commit = commit + batch_mean(torch.mean(active * (e - q_cd.detach()) ** 2)) / frac
+            codebk = codebk + batch_mean(torch.mean(active * (e.detach() - q_cd) ** 2)) / frac
             z_b = (e + (q_cd - e).detach()) @ self.out_proj[i] + self.out_bias[i]
             residual = residual - z_b.detach()
             zq = zq + active * z_b

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import rng
 from ..core.config import PredictorConfig
 
 
@@ -85,8 +86,8 @@ class CrossPredictor(nn.Module):
                 dropout: Optional[torch.Generator] = None) -> torch.Tensor:
         """zt_prev [B, C, Tq], za [B, C, Tkv] -> [B, C, Tq]. ``kv_valid``
         [Tkv] or [B, Tkv] bool masks out keys (the padded tail of a chunk);
-        ``dropout``, a generator on the inputs' device, turns on train-time
-        dropout."""
+        ``dropout``, a generator on the inputs' device (or a
+        ``core/rng.py::BatchShard`` of one), turns on train-time dropout."""
         h = self.cfg.heads
         dh = self.cfg.dim // h
         q = layer_norm(self.ln_q, self._posenc(zt_prev))           # [B, Tq, C]
@@ -110,7 +111,7 @@ class CrossPredictor(nn.Module):
         merged = ctx.transpose(1, 2).reshape(B, Tq, self.cfg.dim)
         p = self.cfg.dropout
         if dropout is not None and p > 0.0:
-            keep = torch.rand(merged.shape, generator=dropout, device=merged.device) < 1.0 - p
+            keep = rng.rand(merged.shape, dropout, merged.device) < 1.0 - p
             merged = torch.where(keep, merged / (1.0 - p), 0.0)
         y = linear(self.out, merged)
         y = y + q

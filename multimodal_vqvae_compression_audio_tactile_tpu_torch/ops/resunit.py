@@ -19,9 +19,10 @@ and the gradient silently cut.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -319,3 +320,22 @@ def resunit_stack(units: Sequence[ResUnit], x: torch.Tensor,
         if x.dtype == torch.bfloat16:
             return _stack_bf16(lib, units, x, dils, post_alpha, stream)
         return _stack_fp32(lib, units, x, dils, post_alpha, stream)
+
+
+@contextlib.contextmanager
+def plain_stacks() -> Iterator[None]:
+    """Inside, the models' residual-unit stacks run through the plain
+    versions (``resunit_stack_ref``, ``resunit_tm.resunit_stack_tm_ref``)
+    instead of the kernels K1 and K3, whose launches do not move: what an
+    operator counter (``utils/roofline.py``) sees is then the same work as
+    aten operations."""
+    from ..models import dac
+    from . import resunit_tm
+
+    saved = dac.resunit_stack, dac.resunit_stack_tm
+    dac.resunit_stack, dac.resunit_stack_tm = (resunit_stack_ref,
+                                               resunit_tm.resunit_stack_tm_ref)
+    try:
+        yield
+    finally:
+        dac.resunit_stack, dac.resunit_stack_tm = saved

@@ -22,6 +22,13 @@ frozen encoders run under ``no_grad`` through K1 (48 launches a waveform
 step in fp32); the tactile decoder, whether frozen or trained, runs its
 plain stacks with autograd (``Decoder.forward_train``); everything runs in
 true fp32. Every entry point runs on the card unless ``device="cpu"``.
+
+``train_plc(mesh=...)`` is data-parallel as ``train/loop.py::train_codec``:
+each rank runs its rows of the global batch (and of its mask, drawn on the
+host for the whole batch), the gradients are all-reduced before the
+optimizer, the dropout draws the global batch's masks, and the two masked
+terms divide the global batch's sums (``parallel/mesh.py::batch_sum``), so
+the loss and every metric are the meshless step's.
 """
 
 from __future__ import annotations
@@ -38,12 +45,14 @@ import torch
 
 from ..convert import (decoder_leaves, decoder_tree, load_tolerant, plc_head_leaves,
                        plc_head_tree)
+from ..core import rng
 from ..core.config import CodecConfig, PLCConfig, TrainConfig, asdict_jsonable
 from ..core.precision import fp32_exact
 from ..data import wire
 from ..eval.serving import resolve_device
 from ..losses.losses import codec_loss
 from ..models import allpred_ar
+from ..parallel import mesh as pmesh
 from ..train import checkpoint as ckpt
 from ..train.loop import AdamW, put_batch, step_generator
 from ..utils import artifacts
@@ -82,9 +91,10 @@ class PLCTrainState:
 def masked_latent_rel_mse(z_pred: torch.Tensor, z_tgt: torch.Tensor, m: torch.Tensor,
                           eps: float = 1e-8) -> torch.Tensor:
     """Relative squared error of the predicted latents on the masked tokens,
-    over the masked latents' own power (scale-free)."""
-    d = torch.sum(((z_pred - z_tgt) ** 2) * m)
-    p = torch.sum((z_tgt ** 2) * m)
+    over the masked latents' own power (scale-free); both sums over the
+    global batch inside ``parallel/mesh.py::batch_scope``."""
+    d = pmesh.batch_sum(torch.sum(((z_pred - z_tgt) ** 2) * m))
+    p = pmesh.batch_sum(torch.sum((z_tgt ** 2) * m))
     return d / torch.clamp(p, min=eps)
 
 
@@ -92,10 +102,11 @@ def masked_time_rel_mse(y_hat: torch.Tensor, tgt: torch.Tensor, m: torch.Tensor,
                         hop: int, eps: float = 1e-8) -> torch.Tensor:
     """Power-normalised squared error over the masked sample spans (token t
     covers samples [t * hop, (t + 1) * hop)): 10^(-SNR_masked / 10), the
-    evaluator's masked-PSNR objective."""
+    evaluator's masked-PSNR objective; global sums as
+    ``masked_latent_rel_mse``'s."""
     sm = torch.repeat_interleave(m, hop, dim=-1)[..., :y_hat.shape[-1]]
-    d = torch.sum(((y_hat - tgt) ** 2) * sm)
-    p = torch.sum((tgt ** 2) * sm)
+    d = pmesh.batch_sum(torch.sum(((y_hat - tgt) ** 2) * sm))
+    p = pmesh.batch_sum(torch.sum((tgt ** 2) * sm))
     return d / torch.clamp(p, min=eps)
 
 
@@ -108,14 +119,17 @@ def _latents(backbones: dict, cfg: CodecConfig, a, tc) -> tuple:
             backbones["audio"], backbones["tactile"], None, cfg), wire.decode_wave(a), tc, cfg)
 
 
-def make_plc_train_step(cfg: CodecConfig, tcfg: TrainConfig, mask_embed: bool = False):
+def make_plc_train_step(cfg: CodecConfig, tcfg: TrainConfig, mask_embed: bool = False,
+                        mesh: Optional[pmesh.Mesh] = None):
     """-> (train_step, eval_step, latent_train_step):
     ``train_step(state, backbones, a, tc, mask, base_seed) -> metrics``,
     ``eval_step(head, backbones, a, tc, mask) -> metrics`` and the
     decoder-free ``latent_train_step`` (same signature as ``train_step``).
     ``a``: the audio waveform batch or the cached ``(qa, zt)``; ``mask``
     [B, T_lat] bool; metrics: one [3] tensor on the device, [total, masked
-    latent rel. MSE, masked time rel. MSE]. ``base_seed`` None: no dropout."""
+    latent rel. MSE, masked time rel. MSE]. ``base_seed`` None: no dropout.
+    With ``mesh`` the batches are this rank's rows and the metrics the
+    global batch's."""
     lw = tcfg.loss
 
     def loss_fn(head, backbones, a, tc, mask, gen) -> torch.Tensor:
@@ -144,22 +158,30 @@ def make_plc_train_step(cfg: CodecConfig, tcfg: TrainConfig, mask_embed: bool = 
         w = max(lw.w_plc_latent, 1e-3)             # the phase trains even at weight 0
         return torch.stack([w * lat, lat, torch.zeros_like(lat)])
 
+    def global_metrics(metrics: torch.Tensor) -> torch.Tensor:
+        return metrics if mesh is None else pmesh.all_reduce_mean(mesh, metrics)
+
     def stepper(fn):
         def step(state: PLCTrainState, backbones: dict, a, tc, mask,
                  base_seed: Optional[int]) -> torch.Tensor:
             gen = (None if base_seed is None
                    else step_generator(base_seed, state.step, 0, tc.device))
+            if gen is not None and mesh is not None:
+                gen = rng.BatchShard(gen, mesh.batch_index, mesh.batch_shards)
             state.head.zero_grad(set_to_none=True)
-            metrics = fn(state.head, backbones, a, tc, mask, gen)
-            metrics[0].backward()
+            with pmesh.batch_scope(mesh):
+                metrics = fn(state.head, backbones, a, tc, mask, gen)
+                metrics[0].backward()
+            pmesh.reduce_grads(mesh, state.opt.params)
             state.opt.step()
             state.step += 1
-            return metrics.detach()
+            return global_metrics(metrics.detach())
         return step
 
     @torch.no_grad()
     def eval_step(head: PLCHead, backbones: dict, a, tc, mask) -> torch.Tensor:
-        return loss_fn(head, backbones, a, tc, mask, None)
+        with pmesh.batch_scope(mesh):
+            return global_metrics(loss_fn(head, backbones, a, tc, mask, None))
 
     return stepper(loss_fn), eval_step, stepper(latent_loss_fn)
 
@@ -331,6 +353,7 @@ def train_plc(
     out_dir: str,
     mode: str = "uniform",
     seed: int = 7,
+    mesh: Optional[pmesh.Mesh] = None,
     steps_per_epoch: Optional[int] = None,
     save_every: int = 1,
     resume: bool = False,
@@ -349,9 +372,17 @@ def train_plc(
     ``latent_pretrain_epochs`` train the decoder-free latent regression;
     validation always scores the full loss. ``on_epoch(ep, head)`` is called
     after each epoch's bookkeeping. The backbones are frozen and moved to
-    the device (the card unless ``device="cpu"``)."""
+    the device (the card unless ``device="cpu"``; the mesh's with
+    ``mesh``). ``mesh``: data parallelism (the module's docstring), made
+    by ``parallel/mesh.py::mesh_for_batch`` when None; rank 0 alone writes
+    the files."""
     assert mode in ("uniform", "category")
-    dev = resolve_device(device)
+    if mesh is None:
+        mesh = pmesh.mesh_for_batch(tcfg.batch)
+    else:
+        mesh.shard_size(tcfg.batch)          # raises where the batch does not divide
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    writer = mesh is None or mesh.rank == 0
     os.makedirs(out_dir, exist_ok=True)
     head = plc_model.plc_head_init(cfg, torch.Generator().manual_seed(seed),
                                    n_layers=pcfg.n_layers)
@@ -371,9 +402,11 @@ def train_plc(
     def fresh_optimizer() -> AdamW:
         return AdamW(list(head.parameters()), tcfg, steps_per_epoch, sched_offset_steps=offset)
 
-    state = PLCTrainState(head, fresh_optimizer())
-    train_step, eval_step, latent_step = make_plc_train_step(cfg, tcfg, pcfg.mask_embed)
     backbones = _frozen(backbones, dev)
+    if mesh is not None:
+        pmesh.shard_replicated(mesh, [head, *backbones.values()])
+    state = PLCTrainState(head, fresh_optimizer())
+    train_step, eval_step, latent_step = make_plc_train_step(cfg, tcfg, pcfg.mask_embed, mesh)
 
     t_lat = int(round(tcfg.seg_sec * cfg.dac.tokens_per_sec))
     tps = cfg.dac.tokens_per_sec
@@ -396,9 +429,11 @@ def train_plc(
     acp = ckpt.AsyncCheckpointer()
 
     def batch_with_mask(b, rng):
-        a, tc = put_batch(b, dev)
-        mask = _make_mask(rng, tc.shape[0], t_lat, pcfg, mode, tps)
-        return a, tc, torch.from_numpy(mask).to(dev)
+        # the mask of the global batch, drawn on the host; then this rank's rows
+        mask = _make_mask(rng, np.shape(b[-1])[0], t_lat, pcfg, mode, tps)
+        a, tc = put_batch(b, dev, mesh)
+        return a, tc, (torch.from_numpy(mask).to(dev) if mesh is None
+                       else pmesh.shard_batch(mesh, mask))
 
     try:
         with fp32_exact(dev.type == "cuda"):
@@ -435,7 +470,7 @@ def train_plc(
                             p.copy_(b)
                     state.opt = fresh_optimizer()
 
-                if ep % save_every == 0 or ep == tcfg.epochs:
+                if writer and (ep % save_every == 0 or ep == tcfg.epochs):
                     acp.save(last_path, plc_head_tree(head), ep, hist)
                 if v + 1e-6 < best_val and ep > tcfg.best_after_epoch:
                     best_val, best_epoch = v, ep
@@ -444,13 +479,15 @@ def train_plc(
                 if on_epoch is not None:
                     on_epoch(ep, head)
 
-        if best_head is not None:
+        if best_head is not None and writer:
             best = PLCHead(cfg, pcfg.n_layers).to(dev)
             best.load_state_dict(best_head)
             acp.save(os.path.join(out_dir, "best.msgpack"), plc_head_tree(best), best_epoch,
                      hist)
     finally:
         acp.close()
+    if not writer:
+        return hist
     artifacts.write_meta(out_dir, {
         "mode": mode,
         "plc": asdict_jsonable(pcfg),

@@ -34,6 +34,18 @@ runs only the AR roll and the tactile decoder (no K1). A whole epoch runs
 over a crop plan sent to the device once: the crops are gathered inside the
 epoch, no step waits for the host, and the epoch's metrics come back in one
 copy (``make_cached_epoch_fns``, the JAX package's scanned epoch).
+
+``mesh=`` (``parallel/mesh.py``): every rank is given the same global batch
+and runs its rows; the gradients are all-reduced before the optimizer, so
+the head and its optimizer stay replicated; the dropout draws the global
+batch's masks (``core/rng.py::BatchShard``); the EMA step runs on every
+rank over the all-gathered tokens, so its counts, sums and reseeds are the
+global batch's and the books stay replicated; the metrics are the global
+batch's (the losses' means all-reduced, the code usage of the gathered
+codes), so ``hist.json`` is the meshless run's. Rank 0 alone writes the
+checkpoints and ``hist.json``. Without ``mesh``, a flat mesh is made when
+``torch.distributed`` is initialised with more than one rank and the batch
+divides it (``mesh_for_batch``), as the JAX trainer makes one.
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ import numpy as np
 import torch
 
 from ..convert import head_tree, load_head_tolerant
+from ..core import rng
 from ..core.config import CodecConfig, TrainConfig
 from ..core.precision import fp32_exact
 from ..data import wire
@@ -56,6 +69,7 @@ from ..models import allpred_ar
 from ..models.allpred_ar import CodecModules, Head
 from ..models.dac import DAC
 from ..ops import rvq
+from ..parallel import mesh as pmesh
 from ..utils import artifacts
 from . import checkpoint as ckpt
 from . import latent_cache as lc
@@ -168,13 +182,15 @@ def step_generator(seed: int, step: int, salt: int, device) -> torch.Generator:
     return g
 
 
-def make_step_fns(cfg: CodecConfig, tcfg: TrainConfig):
+def make_step_fns(cfg: CodecConfig, tcfg: TrainConfig, mesh: Optional[pmesh.Mesh] = None):
     """-> (train_step(state, a, tc, base_seed, do_ema) -> metrics,
     eval_step(m, a, tc) -> metrics); metrics is one [len(METRIC_KEYS)]
     tensor on the device. ``a`` is the audio waveform batch, or the cached
     latents ``(qa, zt)`` (``train/latent_cache.py``): then only the AR roll
     and the frozen tactile decoder (its plain stacks) run. ``base_seed``
-    None: no dropout, reinit draws from seed 0."""
+    None: no dropout, reinit draws from seed 0. With ``mesh`` the batches
+    are this rank's rows (``pmesh.shard_batch``) and the metrics the global
+    batch's."""
 
     def cached_forward(m: CodecModules, qa, zt, tc, gen) -> dict:
         roll = allpred_ar.ar_roll_train(m.head, cfg, qa, zt, dropout=gen)
@@ -196,26 +212,37 @@ def make_step_fns(cfg: CodecConfig, tcfg: TrainConfig):
         return total, parts, out
 
     def pack_metrics(parts: dict, codes, valid) -> torch.Tensor:
+        losses = [k for k in METRIC_KEYS if k in parts]
+        vals = torch.stack([parts[k].detach().float() for k in losses])
+        if mesh is not None:
+            vals = pmesh.all_reduce_mean(mesh, vals)
+            codes = pmesh.all_gather_batch(mesh, codes)
         stats = rvq.usage_stats(codes, cfg.rvq.n_embed, valid=valid)
-        parts = dict(parts, vq_bits=stats["bits"].mean(), vq_bits_min=stats["bits"].min(),
-                     vq_used=stats["used_frac"].mean())
-        return torch.stack([parts[k].detach().float() for k in METRIC_KEYS])
+        parts = dict(zip(losses, vals), vq_bits=stats["bits"].mean(),
+                     vq_bits_min=stats["bits"].min(), vq_used=stats["used_frac"].mean())
+        return torch.stack([parts[k].float() for k in METRIC_KEYS])
 
     def train_step(state: TrainState, a, tc, base_seed: Optional[int],
                    do_ema: bool = False) -> torch.Tensor:
         head, dev = state.head, tc.device
         gen = None if base_seed is None else step_generator(base_seed, state.step,
                                                             _DROPOUT_SALT, dev)
+        if gen is not None and mesh is not None:
+            gen = rng.BatchShard(gen, mesh.batch_index, mesh.batch_shards)
         head.zero_grad(set_to_none=True)
         total, parts, out = loss_fn(state.m, a, tc, gen)
         total.backward()
+        pmesh.reduce_grads(mesh, state.opt.params)
         state.opt.step()
         if do_ema:
             reinit = (step_generator(base_seed, state.step, _REINIT_SALT, dev)
                       if base_seed is not None else torch.Generator(device=dev).manual_seed(0))
-            valid_bt = torch.broadcast_to(out["valid"][None], out["r_tokens"].shape[::2])
+            r_tokens = out["r_tokens"]
+            if mesh is not None:
+                r_tokens = pmesh.all_gather_batch(mesh, r_tokens)
+            valid_bt = torch.broadcast_to(out["valid"][None], r_tokens.shape[::2])
             books, counts = rvq.ema_update_with_reinit(
-                head.vq_books, head.vq_counts, out["r_tokens"], reinit, valid=valid_bt,
+                head.vq_books, head.vq_counts, r_tokens, reinit, valid=valid_bt,
                 decay=cfg.rvq.ema_decay, ema_mode=cfg.rvq.ema_mode, dead_frac=cfg.rvq.dead_frac)
             with torch.no_grad():
                 head.vq_books.copy_(books)
@@ -231,22 +258,28 @@ def make_step_fns(cfg: CodecConfig, tcfg: TrainConfig):
     return train_step, eval_step
 
 
-def make_cached_epoch_fns(cfg: CodecConfig, tcfg: TrainConfig, seg_tok: int):
+def make_cached_epoch_fns(cfg: CodecConfig, tcfg: TrainConfig, seg_tok: int,
+                          mesh: Optional[pmesh.Mesh] = None):
     """Whole epochs over a device-resident latent cache, the JAX package's
     scanned epoch: -> (train_epoch(state, cache, idxs, tok0s, base_seed,
     do_ema) -> mean metrics, eval_epoch(m, cache, idxs, tok0s) -> mean
     metrics). ``idxs``/``tok0s`` are an epoch's crop plan on the device,
     [steps, batch] (``latent_cache.crop_index_arrays``); each step gathers its
     crops from the cache and runs the step, with no host sync between steps.
+    With ``mesh`` each rank takes its columns of the plan (its rows of each
+    step's batch).
     """
-    train_step, eval_step = make_step_fns(cfg, tcfg)
+    train_step, eval_step = make_step_fns(cfg, tcfg, mesh)
     hop = cfg.dac.hop
+
+    def mine(plan: torch.Tensor) -> torch.Tensor:
+        return plan if mesh is None else plan[:, mesh.rows(plan.shape[1])]
 
     def train_epoch(state: TrainState, cache: lc.LatentCache, idxs: torch.Tensor,
                     tok0s: torch.Tensor, base_seed: Optional[int],
                     do_ema: bool = False) -> torch.Tensor:
         ms = []
-        for i, t0 in zip(idxs, tok0s):
+        for i, t0 in zip(mine(idxs), mine(tok0s)):
             qa, zt, tc = lc.gather_crops(cache, i, t0, seg_tok, hop)
             ms.append(train_step(state, (qa, zt), tc, base_seed, do_ema=do_ema))
         return torch.stack(ms).mean(0)
@@ -254,7 +287,7 @@ def make_cached_epoch_fns(cfg: CodecConfig, tcfg: TrainConfig, seg_tok: int):
     def eval_epoch(m: CodecModules, cache: lc.LatentCache, idxs: torch.Tensor,
                    tok0s: torch.Tensor) -> torch.Tensor:
         ms = []
-        for i, t0 in zip(idxs, tok0s):
+        for i, t0 in zip(mine(idxs), mine(tok0s)):
             qa, zt, tc = lc.gather_crops(cache, i, t0, seg_tok, hop)
             ms.append(eval_step(m, (qa, zt), tc))
         return torch.stack(ms).mean(0)
@@ -262,11 +295,14 @@ def make_cached_epoch_fns(cfg: CodecConfig, tcfg: TrainConfig, seg_tok: int):
     return train_epoch, eval_epoch
 
 
-def put_batch(b, dev: torch.device):
-    """A batch (numpy arrays or tensors, nested in tuples) on ``dev``; a
-    3-tuple (qa, zt, tc) of cached latents becomes ((qa, zt), tc)."""
+def put_batch(b, dev: torch.device, mesh: Optional[pmesh.Mesh] = None):
+    """A batch (numpy arrays or tensors, nested in tuples) on ``dev``, or
+    this rank's rows of it with ``mesh``; a 3-tuple (qa, zt, tc) of cached
+    latents becomes ((qa, zt), tc)."""
     if len(b) == 3:
         b = ((b[0], b[1]), b[2])
+    if mesh is not None:
+        return pmesh.shard_batch(mesh, b)
 
     def put(x):
         if isinstance(x, tuple):
@@ -282,6 +318,7 @@ def _frozen(bb: DAC, dev: torch.device) -> DAC:
 def train_codec(cfg: CodecConfig, tcfg: TrainConfig, backbones: dict,
                 train_batches: Optional[Callable[[int], Iterable]],
                 val_batches: Optional[Callable[[], Iterable]], out_dir: str, seed: int = 7,
+                mesh: Optional[pmesh.Mesh] = None,
                 steps_per_epoch: Optional[int] = None, save_every: int = 1,
                 resume: bool = False, cache: Optional[lc.LatentCache] = None,
                 cache_train_rows: Optional[Sequence[int]] = None,
@@ -307,8 +344,14 @@ def train_codec(cfg: CodecConfig, tcfg: TrainConfig, backbones: dict,
     ``tcfg.best_after_epoch``) at the end, ``hist.json`` and the loss
     curves' ``curves.png`` (where matplotlib is missing, one line says it is
     not drawn). ``on_epoch(ep, head)`` is called after each epoch's
-    bookkeeping."""
-    dev = resolve_device(device)
+    bookkeeping. ``mesh``: data parallelism over ``torch.distributed`` (see
+    the module's docstring); the device is then the mesh's."""
+    if mesh is None:
+        mesh = pmesh.mesh_for_batch(tcfg.batch)
+    else:
+        mesh.shard_size(tcfg.batch)          # raises where the batch does not divide
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    writer = mesh is None or mesh.rank == 0
     os.makedirs(out_dir, exist_ok=True)
     head = allpred_ar.head_init(cfg, torch.Generator().manual_seed(seed))
 
@@ -341,13 +384,15 @@ def train_codec(cfg: CodecConfig, tcfg: TrainConfig, backbones: dict,
     head = head.to(dev)
     m = allpred_ar.codec_of(_frozen(backbones["audio"], dev),
                             _frozen(backbones["tactile"], dev), head, cfg)
+    if mesh is not None:
+        pmesh.shard_replicated(mesh, m)
     offset = (start_epoch - 1) * steps_per_epoch
 
     def fresh_optimizer() -> AdamW:
         return AdamW(adamw_params(head), tcfg, steps_per_epoch, sched_offset_steps=offset)
 
     state = TrainState(m, fresh_optimizer())
-    train_step, eval_step = make_step_fns(cfg, tcfg)
+    train_step, eval_step = make_step_fns(cfg, tcfg, mesh)
     if cache is not None:
         cache = cache.to(dev)
         t_tok_total = int(cache.qa.shape[-1])
@@ -355,7 +400,7 @@ def train_codec(cfg: CodecConfig, tcfg: TrainConfig, backbones: dict,
         # the fixed validation plan, sent to the device once
         va_idx, va_tok0 = (torch.from_numpy(x).to(dev) for x in lc.crop_index_arrays(
             rows_va, t_tok_total, seg_tok, tcfg.batch, n_val_steps, seed + 77, 0))
-        train_epoch, eval_epoch = make_cached_epoch_fns(cfg, tcfg, seg_tok)
+        train_epoch, eval_epoch = make_cached_epoch_fns(cfg, tcfg, seg_tok, mesh)
 
     best_val = float("inf")
     best_head = None          # a device copy until the final write
@@ -388,9 +433,10 @@ def train_codec(cfg: CodecConfig, tcfg: TrainConfig, backbones: dict,
                     train_mean = train_epoch(state, cache, idxs, tok0s, base_seed, do_ema)
                     val_mean = eval_epoch(m, cache, va_idx, va_tok0)
                 else:
-                    step_metrics = [train_step(state, *put_batch(b, dev), base_seed,
+                    step_metrics = [train_step(state, *put_batch(b, dev, mesh), base_seed,
                                                do_ema=do_ema) for b in train_batches(ep)]
-                    val_metrics = [eval_step(m, *put_batch(b, dev)) for b in val_batches()]
+                    val_metrics = [eval_step(m, *put_batch(b, dev, mesh))
+                                   for b in val_batches()]
                     train_mean = (torch.stack(step_metrics).mean(0) if step_metrics
                                   else torch.zeros(nm, device=dev))
                     val_mean = (torch.stack(val_metrics).mean(0) if val_metrics
@@ -422,7 +468,7 @@ def train_codec(cfg: CodecConfig, tcfg: TrainConfig, backbones: dict,
                             p.copy_(b)
                     state.opt = fresh_optimizer()
 
-                if ep % save_every == 0 or ep == tcfg.epochs:
+                if writer and (ep % save_every == 0 or ep == tcfg.epochs):
                     acp.save(last_path, head_tree(head), ep, hist)
                 if v + 1e-6 < best_val and ep > tcfg.best_after_epoch:
                     best_val, best_epoch = v, ep
@@ -431,12 +477,14 @@ def train_codec(cfg: CodecConfig, tcfg: TrainConfig, backbones: dict,
                 if on_epoch is not None:
                     on_epoch(ep, head)
 
-        if best_head is not None:
+        if best_head is not None and writer:
             best = Head(cfg).to(dev)
             best.load_state_dict(best_head)
             acp.save(os.path.join(out_dir, "best.msgpack"), head_tree(best), best_epoch, hist)
     finally:
         acp.close()
+    if not writer:
+        return hist
     artifacts.write_hist(out_dir, hist)
     if artifacts.have_matplotlib():
         artifacts.write_curves(out_dir, hist, title="AllPredAR A->T")

@@ -25,8 +25,17 @@ card through K1. Everything runs in true fp32 (``fp32_exact``), as the JAX
 package trains at ``precision="highest"``.
 
 The per-step draws (quantizer dropout, reseeds) come from ``core/rng.py``
-generators, which cannot reproduce the JAX package's threefry bits. There is
-no multi-device mesh: ``mesh`` is refused.
+generators, which cannot reproduce the JAX package's threefry bits.
+
+``mesh=`` (``parallel/mesh.py``) is data parallelism as in
+``train/loop.py::train_codec``: each rank runs its rows of the global
+batch; the generator's and the discriminators' gradients are all-reduced
+before their optimizers; the quantizer-dropout depths are the global
+batch's draw (``core/rng.py::BatchShard``), and the quantizer's and the
+feature-matching losses divide the global batch's means
+(``parallel/mesh.py::batch_mean``); the usage tracking and the reseeds run
+on every rank over the all-gathered latents, so the books stay replicated;
+the metrics are the global batch's. Rank 0 alone writes the files.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from ..losses import gan as gan_mod
 from ..losses.losses import codec_loss
 from ..models.dac import DAC, init_dac_, quantizer_dead_code_reinit
 from ..ops import rvq
+from ..parallel import mesh as pmesh
 from ..utils import artifacts
 from . import checkpoint as ckpt
 from .loop import AdamW
@@ -80,9 +90,10 @@ def warmup_cosine_lr(base_lr: float, total_steps: int, warmup_steps: int,
 def sample_nq_dropout(gen: torch.Generator, batch: int, n_books: int,
                       p_full: float = 0.5) -> torch.Tensor:
     """Quantizer-dropout depths [B] (int64, on ``gen``'s device): ``n_books``
-    with probability ``p_full``, else uniform over 1..n_books."""
-    full = torch.rand(batch, generator=gen, device=gen.device) < p_full
-    uni = torch.randint(1, n_books + 1, (batch,), generator=gen, device=gen.device)
+    with probability ``p_full``, else uniform over 1..n_books. ``gen`` may be
+    a ``core/rng.py::BatchShard``: the global batch's draw, this shard's rows."""
+    full = rng.rand((batch,), gen, gen.device) < p_full
+    uni = rng.randint(1, n_books + 1, (batch,), gen, gen.device)
     return torch.where(full, torch.full_like(uni, n_books), uni)
 
 
@@ -116,12 +127,14 @@ def disc_optimizer(d: gan_mod.Discriminators, tcfg: TrainConfig, gcfg: GanConfig
                  schedule=lambda step: lr, weight_decay=1e-4)
 
 
-def _update(opt: AdamW, loss: torch.Tensor) -> None:
+def _update(opt: AdamW, loss: torch.Tensor, mesh: Optional[pmesh.Mesh] = None) -> None:
     """One update of ``opt``'s leaves from the gradient of ``loss`` toward
-    them alone (left in their ``.grad``); no other leaf gets a gradient."""
+    them alone (left in their ``.grad``, the mean over the batch shards with
+    ``mesh``); no other leaf gets a gradient."""
     grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
     for p, g in zip(opt.params, grads):
         p.grad = g
+    pmesh.reduce_grads(mesh, opt.params)
     opt.step()
 
 
@@ -141,54 +154,73 @@ def _recon(m: DAC, cfg: DacConfig, x: torch.Tensor, nq: Optional[torch.Tensor],
     return {"y": y, "x": x, "total": total, "parts": parts, "z": z.detach(), "codes": codes}
 
 
-def _nq(base_seed: Optional[int], step: int, batch: int, n_books: int, dev) -> Optional[torch.Tensor]:
+def _nq(base_seed: Optional[int], step: int, batch: int, n_books: int, dev,
+        mesh: Optional[pmesh.Mesh] = None) -> Optional[torch.Tensor]:
     if base_seed is None:
         return None
-    return sample_nq_dropout(rng.generator(base_seed, step, device=dev), batch, n_books)
+    gen = rng.generator(base_seed, step, device=dev)
+    if mesh is not None:
+        gen = rng.BatchShard(gen, mesh.batch_index, mesh.batch_shards)
+    return sample_nq_dropout(gen, batch, n_books)
 
 
-def _eval_fn(cfg: DacConfig, w_commit: float, w_codebook: float) -> Callable:
+def _global(mesh: Optional[pmesh.Mesh], metrics: torch.Tensor) -> torch.Tensor:
+    """A metric vector of this rank's rows as the global batch's mean."""
+    return metrics if mesh is None else pmesh.all_reduce_mean(mesh, metrics)
+
+
+def _eval_fn(cfg: DacConfig, w_commit: float, w_codebook: float,
+             mesh: Optional[pmesh.Mesh] = None) -> Callable:
     @torch.no_grad()
     def eval_step(m: DAC, x: torch.Tensor) -> torch.Tensor:
         """The reconstruction total on x, through the serving encoder and
         decoder (K1 on the card)."""
-        return _recon(m, cfg, wire.decode_wave(x), None, w_commit, w_codebook, False)["total"]
+        with pmesh.batch_scope(mesh):
+            out = _recon(m, cfg, wire.decode_wave(x), None, w_commit, w_codebook, False)
+        return _global(mesh, out["total"])
     return eval_step
 
 
 def make_pretrain_step(cfg: DacConfig, tcfg: TrainConfig, w_commit: float = 0.25,
-                       w_codebook: float = 1.0):
+                       w_codebook: float = 1.0, mesh: Optional[pmesh.Mesh] = None):
     """-> (pretrain_step(state, x, base_seed=None) -> [total, bits],
     eval_step(m, x) -> total), tensors on the device. ``base_seed`` None:
     every example through every book, and the reseeds drawn from seed 0;
     else the dropout of step s from ``(base_seed, s)`` and the reseeds from
     ``(base_seed, s + 2^20)``. ``bits`` is the mean measured entropy of the
-    step's codes per book."""
+    step's codes per book. With ``mesh`` x is this rank's rows, and the
+    numbers the global batch's."""
     n_books = cfg.n_codebooks
+
+    def gathered(t: torch.Tensor) -> torch.Tensor:
+        return t if mesh is None else pmesh.all_gather_batch(mesh, t)
 
     def pretrain_step(state: PretrainState, x: torch.Tensor,
                       base_seed: Optional[int] = None) -> torch.Tensor:
         x = wire.decode_wave(x)
         dev = x.device
-        out = _recon(state.m, cfg, x, _nq(base_seed, state.step, x.shape[0], n_books, dev),
-                     w_commit, w_codebook, True)
-        _update(state.opt, out["total"])
+        with pmesh.batch_scope(mesh):
+            out = _recon(state.m, cfg, x,
+                         _nq(base_seed, state.step, x.shape[0], n_books, dev, mesh),
+                         w_commit, w_codebook, True)
+            _update(state.opt, out["total"], mesh)
         if state.vq_counts is not None:
             gen = (rng.generator(base_seed, state.step + REINIT_TAG, device=dev)
                    if base_seed is not None else torch.Generator(device=dev).manual_seed(0))
             books, state.vq_counts = quantizer_dead_code_reinit(
-                state.m.quantizer, state.vq_counts, out["z"], gen)
+                state.m.quantizer, state.vq_counts, gathered(out["z"]), gen)
             with torch.no_grad():
                 state.m.quantizer.codebooks.copy_(books)
-        bits = rvq.usage_stats(out["codes"], cfg.codebook_size)["bits"].mean()
+        bits = rvq.usage_stats(gathered(out["codes"]), cfg.codebook_size)["bits"].mean()
         state.step += 1
-        return torch.stack([out["total"].detach(), bits])
+        return torch.stack([_global(mesh, out["total"].detach()), bits])
 
-    return pretrain_step, _eval_fn(cfg, w_commit, w_codebook)
+    return pretrain_step, _eval_fn(cfg, w_commit, w_codebook, mesh)
 
 
 def make_gan_pretrain_step(cfg: DacConfig, tcfg: TrainConfig, gcfg: GanConfig,
-                           w_commit: float = 0.25, w_codebook: float = 1.0):
+                           w_commit: float = 0.25, w_codebook: float = 1.0,
+                           mesh: Optional[pmesh.Mesh] = None):
     """-> (gan_step, warmup_step, eval_step). ``gan_step(state, x,
     base_seed=None)`` and ``warmup_step`` -> [total, d_val, adv, fm] (zeros
     but the total in a warm-up step, which leaves the discriminators as they
@@ -196,39 +228,43 @@ def make_gan_pretrain_step(cfg: DacConfig, tcfg: TrainConfig, gcfg: GanConfig,
     reports it); ``eval_step(m, x)`` -> the reconstruction total. The generator's
     total adds ``w_adv * adv + w_fm * fm``; its gradient is taken toward
     the backbone's leaves alone, and the discriminators then step on the
-    same forward's (detached) fake against the real batch."""
+    same forward's (detached) fake against the real batch. With ``mesh`` x
+    is this rank's rows, and the numbers the global batch's."""
     n_books = cfg.n_codebooks
 
     def gan_step(state: PretrainState, x: torch.Tensor,
                  base_seed: Optional[int] = None) -> torch.Tensor:
         x = wire.decode_wave(x)
-        out = _recon(state.m, cfg, x, _nq(base_seed, state.step, x.shape[0], n_books,
-                                          x.device), w_commit, w_codebook, True)
-        adv, fm = gan_mod.gan_losses(state.d, gcfg, out["x"], out["y"])
-        total = out["total"] + gcfg.w_adv * adv + gcfg.w_fm * fm
-        _update(state.opt, total)
+        with pmesh.batch_scope(mesh):
+            out = _recon(state.m, cfg, x, _nq(base_seed, state.step, x.shape[0], n_books,
+                                              x.device, mesh), w_commit, w_codebook, True)
+            adv, fm = gan_mod.gan_losses(state.d, gcfg, out["x"], out["y"])
+            total = out["total"] + gcfg.w_adv * adv + gcfg.w_fm * fm
+            _update(state.opt, total, mesh)
         y = out["y"].detach()
         real_logits, _ = gan_mod.disc_apply(state.d, gcfg, out["x"])
         fake_logits, _ = gan_mod.disc_apply(state.d, gcfg, y)
         d_val = gan_mod.disc_loss(real_logits, fake_logits, gcfg.loss_kind)
-        _update(state.d_opt, d_val)
+        _update(state.d_opt, d_val, mesh)
         state.step += 1
-        return torch.stack([total.detach(), d_val.detach(), adv.detach(), fm.detach()])
+        return _global(mesh, torch.stack([total.detach(), d_val.detach(), adv.detach(),
+                                          fm.detach()]))
 
     def warmup_step(state: PretrainState, x: torch.Tensor,
                     base_seed: Optional[int] = None) -> torch.Tensor:
         x = wire.decode_wave(x)
-        out = _recon(state.m, cfg, x, _nq(base_seed, state.step, x.shape[0], n_books,
-                                          x.device), w_commit, w_codebook, True)
-        _update(state.opt, out["total"])
+        with pmesh.batch_scope(mesh):
+            out = _recon(state.m, cfg, x, _nq(base_seed, state.step, x.shape[0], n_books,
+                                              x.device, mesh), w_commit, w_codebook, True)
+            _update(state.opt, out["total"], mesh)
         state.step += 1
         # the JAX package reports the reconstruction loss here without the
         # VQ terms it trains on (its warm-up returns codec_loss's total)
         rec = out["parts"]["total"].detach()
         zero = rec.new_zeros(())
-        return torch.stack([rec, zero, zero, zero])
+        return _global(mesh, torch.stack([rec, zero, zero, zero]))
 
-    return gan_step, warmup_step, _eval_fn(cfg, w_commit, w_codebook)
+    return gan_step, warmup_step, _eval_fn(cfg, w_commit, w_codebook, mesh)
 
 
 def pretrain_backbone(
@@ -267,11 +303,16 @@ def pretrain_backbone(
     best validation loss after ``tcfg.best_after_epoch`` restores the best
     backbone (and discriminators) with their moments zeroed; 30 epochs of
     code usage under 0.35 x log2(K) bits zero the generator's moments.
-    ``on_epoch(ep, state)`` is called at the end of each epoch."""
-    if mesh is not None:
-        raise ValueError("pretrain_backbone: the multi-device mesh is not ported "
-                         "(ROADMAP.md, Queue 1 item 13)")
-    dev = resolve_device(device)
+    ``on_epoch(ep, state)`` is called at the end of each epoch. ``mesh``:
+    data parallelism (the module's docstring; the device is then the
+    mesh's), made by ``parallel/mesh.py::mesh_for_batch`` when None; rank 0
+    alone writes the files."""
+    if mesh is None:
+        mesh = pmesh.mesh_for_batch(tcfg.batch)
+    else:
+        mesh.shard_size(tcfg.batch)          # raises where the batch does not divide
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    writer = mesh is None or mesh.rank == 0
     os.makedirs(out_dir, exist_ok=True)
     m = init_dac_(DAC(cfg), torch.Generator().manual_seed(seed))
     if resume_from is not None:
@@ -283,6 +324,8 @@ def pretrain_backbone(
     if steps_per_epoch is None:
         steps_per_epoch = max(1, sum(1 for _ in train_batches(0)))
     m = m.to(dev)
+    if mesh is not None:
+        pmesh.shard_replicated(mesh, m)
 
     total_steps = tcfg.epochs * steps_per_epoch
     if warmup_steps is None:
@@ -301,8 +344,10 @@ def pretrain_backbone(
                 d = load_disc(d_path, gan)
                 log(f"[pretrain] resumed discriminator from {d_path}")
         d = d.to(dev)
+        if mesh is not None:
+            pmesh.shard_replicated(mesh, d)
         state = PretrainState(m, opt, d=d, d_opt=disc_optimizer(d, tcfg, gan))
-        gan_fn, warmup_fn, eval_fn = make_gan_pretrain_step(cfg, tcfg, gan)
+        gan_fn, warmup_fn, eval_fn = make_gan_pretrain_step(cfg, tcfg, gan, mesh=mesh)
 
         def step_fn(ep: int):
             fn = gan_fn if ep >= gan.start_epoch else warmup_fn
@@ -319,13 +364,13 @@ def pretrain_backbone(
             else:
                 counts0 = counts0 + 100.0
         state = PretrainState(m, opt, vq_counts=counts0.to(dev))
-        base_step, eval_fn = make_pretrain_step(cfg, tcfg)
+        base_step, eval_fn = make_pretrain_step(cfg, tcfg, mesh=mesh)
 
         def step_fn(ep: int):
             return lambda st, x: base_step(st, x, base_seed)
 
     def put(b) -> torch.Tensor:
-        return torch.as_tensor(b).to(dev)
+        return torch.as_tensor(b).to(dev) if mesh is None else pmesh.shard_batch(mesh, b)
 
     best_val, best_epoch, best_saved_ep = float("inf"), 0, 0
     best_m = best_d = None          # device copies until the final write
@@ -336,6 +381,7 @@ def pretrain_backbone(
     bits_hist: list = []
     last_reset_ep = 0
     acp = ckpt.AsyncCheckpointer()
+    save = acp.save if writer else (lambda *args: None)
     try:
         with fp32_exact(dev.type == "cuda"):
             for ep in range(start_epoch, tcfg.epochs + 1):
@@ -379,13 +425,13 @@ def pretrain_backbone(
                         last_reset_ep = ep
 
                 if ep % save_every == 0 or ep == tcfg.epochs:
-                    acp.save(os.path.join(out_dir, "last.msgpack"), dac_tree(state.m), ep, hist)
+                    save(os.path.join(out_dir, "last.msgpack"), dac_tree(state.m), ep, hist)
                     if state.vq_counts is not None:
-                        acp.save(os.path.join(out_dir, "vq_counts.msgpack"), state.vq_counts,
-                                 ep, {})
+                        save(os.path.join(out_dir, "vq_counts.msgpack"), state.vq_counts, ep,
+                             {})
                     if state.d is not None:
-                        acp.save(os.path.join(out_dir, "disc_last.msgpack"),
-                                 disc_tree(state.d), ep, {})
+                        save(os.path.join(out_dir, "disc_last.msgpack"), disc_tree(state.d),
+                             ep, {})
                 if v < best_val:
                     best_val, best_epoch = v, ep
                     if best_m is None:
@@ -396,15 +442,16 @@ def pretrain_backbone(
                     if best_d is not None:
                         best_d.load_state_dict(state.d.state_dict())
                     if ep - best_saved_ep >= save_every:
-                        acp.save(os.path.join(out_dir, "best.msgpack"), dac_tree(best_m),
-                                 best_epoch, hist)
+                        save(os.path.join(out_dir, "best.msgpack"), dac_tree(best_m),
+                             best_epoch, hist)
                         best_saved_ep = ep
                 if on_epoch is not None:
                     on_epoch(ep, state)
 
         if best_m is not None:
-            acp.save(os.path.join(out_dir, "best.msgpack"), dac_tree(best_m), best_epoch, hist)
+            save(os.path.join(out_dir, "best.msgpack"), dac_tree(best_m), best_epoch, hist)
     finally:
         acp.close()
-    artifacts.write_hist(out_dir, hist)
+    if writer:
+        artifacts.write_hist(out_dir, hist)
     return hist

@@ -177,6 +177,19 @@ for gan in (None, GanConfig(periods=(2,), fft_sizes=(64,))):
 import {PORT}.scripts.demo_end_to_end, {PORT}.scripts.evidence_tiny
 import {PORT}.scripts.collect_evidence, {PORT}.scripts.extract_dataset
 import {PORT}.eval.plots, {PORT}.plc.plots, {PORT}.data.mat_extract
+from {PORT}.parallel import dryrun, mesh as pmesh
+from {PORT}.models import dac_import
+from {PORT}.utils import flops, profiling, roofline
+from {PORT}.eval import bitstream
+assert pmesh.distributed_init() == 1
+cost = sc.cost_analysis()
+assert cost["encode"]["flops"] > 0 and cost["decode"]["bytes"] > 0
+assert flops.encoder_flops(CodecConfig().tiny().dac, 4800)["total"] > 0
+with profiling.timed("x", log=lambda s: None, device="cpu"):
+    pass
+assert bitstream.unpack_codes(streams[0]).shape == (15, CodecConfig().tiny().rvq.n_books)
+assert bitstream.pack_codes(bitstream.unpack_codes(streams[0]), CodecConfig().tiny().rvq.n_embed,
+                            force_python=True) == streams[0]
 from {PORT}.utils import artifacts
 assert not artifacts.have_matplotlib()
 assert not any(n.split(".")[0] in BLOCK for n in sys.modules)

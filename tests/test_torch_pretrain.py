@@ -46,6 +46,7 @@ from multimodal_vqvae_compression_audio_tactile_tpu_torch.core.config import (
     DacConfig, GanConfig, TrainConfig)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.data import synth
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.models import dac
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.parallel import mesh as pmesh
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.scripts import (
     pretrain_backbone as script)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import checkpoint
@@ -380,8 +381,12 @@ def test_resume_restores_discriminator(tmp_path):
 def test_mesh_and_the_missing_card_are_refused(tmp_path, monkeypatch):
     kw = dict(train_batches=lambda ep: iter([]), val_batches=lambda: iter([]),
               out_dir=str(tmp_path), steps_per_epoch=1)
+    # a mesh is taken (tests/test_torch_parallel_plc.py) but refused where
+    # the batch does not divide into its shards
+    stub = pmesh.Mesh({"data": 4, "model": 1}, {"data": 0, "model": 0}, 0,
+                      torch.device("cpu"), "gloo")
     with pytest.raises(ValueError, match="mesh"):
-        pb.pretrain_backbone(CFG, TrainConfig(epochs=1), mesh=object(), device="cpu", **kw)
+        pb.pretrain_backbone(CFG, TrainConfig(epochs=1, batch=6), mesh=stub, **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         pb.pretrain_backbone(CFG, TrainConfig(epochs=1), **kw)
