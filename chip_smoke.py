@@ -133,8 +133,10 @@ random ones made from ``--seed``. Phases, one line of numbers each:
    all zero; one train step with the encoders through K1 against the same
    step with every stack through the plain versions, which launches no
    kernel (loss within 1e-6 relative, every head gradient within 1e-4 of
-   its leaf's largest); the run's books unchanged in epoch 1 and changed in
-   epoch 2 (the EMA);
+   its leaf's largest); the same train step (dropout, EMA and reseeding on)
+   twice from one start gives bit-equal metrics, head, EMA books and counts,
+   and optimizer state (F6); the run's books unchanged in epoch 1 and
+   changed in epoch 2 (the EMA);
    ``last.msgpack`` and ``best.msgpack`` read back strictly equal to the
    live head at their epochs, ``hist.json`` with the JAX package's keys; the
    trained head through ``convert.load_codec`` and a ``StreamingCodec`` bytes
@@ -146,7 +148,8 @@ random ones made from ``--seed``. Phases, one line of numbers each:
    backbone: the cache of the 24 whole two-second pairs built in batches of
    6 (K1 48 times a batch: the two frozen encoders' 8 fp32 stacks); a
    cached train step and a cached eval step on 1-s crops launch K1, K2 and K3
-   0 times; a cached eval step on whole-file crops gives the generator
+   0 times; the cached train step twice from one start is bit-equal, as
+   in phase 14; a cached eval step on whole-file crops gives the generator
    path's eval loss on the same files within 1e-6 relative;
    ``train_codec(cache=...)`` for 2 epochs (20 train rows, 4 validation
    rows) launches no kernel, its books stay put in epoch 1 and move in epoch
@@ -170,7 +173,8 @@ random ones made from ``--seed``. Phases, one line of numbers each:
    not read, as in the JAX package) has a finite gradient that is not all
    zero; the step through K1 against the same step through the plain stacks
    (loss within 1e-6 relative, every gradient within 1e-4 of its leaf's
-   largest); ``last``/``best`` read back equal to the live head;
+   largest); the step twice from one start is bit-equal, as in phase 14;
+   ``last``/``best`` read back equal to the live head;
    ``plc_config_from_meta`` returns the run's ``PLCConfig``; the trained
    head serves through ``StreamingConcealer`` (bf16, 56 K1 launches). Then
    ``finetune_inpaint_decoder`` for 1 epoch: every backbone and head leaf
@@ -194,7 +198,10 @@ random ones made from ``--seed``. Phases, one line of numbers each:
    leaf has a finite gradient that is not all zero, after the GAN step
    every discriminator leaf too (but the output biases, whose hinge
    gradient is exactly 0 while every logit lies inside the margin), and a
-   warm-up step leaves the discriminators as they were. Runs:
+   warm-up step leaves the discriminators as they were; a reconstruction
+   step and a GAN step (quantizer dropout and reseeding on) each twice from
+   one start give bit-equal losses, backbone, counts, discriminators and
+   optimizer states (F6). Runs:
    ``pretrain_backbone`` for 2 epochs of 3 steps with quantizer dropout,
    (a) reconstruction, (b) GAN with ``start_epoch=2``: K1 only in the eval
    steps (192 launches a run), finite losses, the discriminators
@@ -249,10 +256,9 @@ random ones made from ``--seed``. Phases, one line of numbers each:
    and gives the meshless call's codes, bytes and waveform exactly; one
    batch-6 head train step of phase 14's configuration and corpus with the
    mesh (48 K1 launches) gives the meshless step's metrics (losses and code
-   usage) bit for bit and its head within rtol 1e-3, atol 1e-4 (at most
-   1e-3 of a leaf's elements within Adam's 2 lr: the step's atomic sums, the
-   EMA's ``index_add_`` among them, are not bit-reproducible from run to run,
-   so two meshless steps differ too; their gap is reported); one
+   usage) and head bit for bit, and two meshless steps from one start give
+   the same metrics and head bit for bit (F6: the step sums in a fixed
+   order; the largest gaps are reported); one
    pretraining eval step (batch 8, full-width backbone, 48 K1 launches)
    gives the meshless loss bit for bit. Reported: the encode's ms and the
    train step's device ms (torch.profiler) with and without the mesh;
@@ -277,7 +283,23 @@ random ones made from ``--seed``. Phases, one line of numbers each:
    pure coder's, each decoding the other's stream, and each one's host ms;
    ``utils/profiling.py``'s ``trace`` of one bf16 encode under ``timed``
    and ``annotate``, written under ``build/chip_smoke_trace/``: it holds
-   kernel events and the annotation.
+   kernel events and the annotation;
+23. dual_encoder: ``CodecConfig.vmap_dual_encoder`` (both encoders in one
+   pass, each stack one grouped launch, ``models/dac.py::dual_encode``).
+   First the grouped kernels:
+   K1 over two weight sets at the encoder's four stack shapes and K3 at its
+   two narrow ones, batch 1, fp32 and bf16, bit-equal to two single-stack
+   launches and within the kernel tolerances of the plain versions (gated),
+   each timed by CUDA events beside the two single launches and cuDNN's
+   grouped convolutions of the same stacks, with the bound of both stacks.
+   Then ``StreamingCodec`` encodes, fp32 and bf16, batch 1 and 32, with the
+   option off and on: K1 launches an encode 48 / 56 off and 24 / 28 on
+   (gated), codes and ``z_run`` bit-equal to the sequential encoders'
+   (gated: the convolutions outside the stacks run per encoder), the
+   encode's ms by CUDA events and its device ms by kernel kind
+   (torch.profiler) both ways; the fp32 codes of the 64 parity streams equal
+   the sequential path's (gated), and bf16 against fp32 with
+   docs/PARITY.md's gates over them.
 
 The card's machine has no matplotlib: there the demo draws no figure and
 says so in one line a set of figures; the model work behind each figure
@@ -351,6 +373,8 @@ from multimodal_vqvae_compression_audio_tactile_tpu_torch.scripts.build_latent_c
     full_batches)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.scripts.measure_latencies import (
     measure as measure_latencies)
+from multimodal_vqvae_compression_audio_tactile_tpu_torch.scripts.time_train_steps import (
+    opt_state, unequal)
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import checkpoint, latent_cache
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import loop as train_loop
 from multimodal_vqvae_compression_audio_tactile_tpu_torch.train import pretrain_backbone as pb
@@ -1447,6 +1471,11 @@ def train_probes(cfg, tcfg, bb, batch_np, seed: int) -> dict:
         gate(loss_rel <= 1e-6 and max(errs.values()) <= 1e-4,
              f"train: K1 step against the plain stacks: loss {loss_rel:.3e}, "
              f"grads {max(errs.values()):.3e}")
+        def step_once():
+            st = fresh()
+            met = train_step(st, a, tc, seed + 1, do_ema=True)
+            return [met, *st.head.state_dict().values(), *opt_state(st.opt)]
+        out.update(same_step_twice("train", step_once))
         out.update(launches_train_step=n_train, launches_eval_step=n_eval,
                    launches_plain_step=n_plain, loss=float(metrics[0]),
                    loss_rel_err_k1_vs_plain=loss_rel,
@@ -1621,6 +1650,13 @@ def cached_train_phase(ctx: dict, seed: int) -> None:
         none = expect(False)
         gate(n_train == none and n_eval == none,
              f"cached_train: a cached train step launched {n_train}, an eval step {n_eval}")
+        def cached_once():
+            h = allpred_ar.head_init(cfg, torch.Generator().manual_seed(seed)).cuda()
+            st = train_loop.TrainState(allpred_ar.codec_of(bb, bb, h, cfg), train_loop.AdamW(
+                train_loop.adamw_params(h), tcfg, 3))
+            met = train_step(st, (qa, zt), tc, seed + 1, True)
+            return [met, *h.state_dict().values(), *opt_state(st.opt)]
+        twice = same_step_twice("cached_train", cached_once)
         times = step_times({"cached_train_step": lambda: train_step(state, (qa, zt), tc,
                                                                     seed + 1, True),
                             "cached_eval_step": lambda: eval_step(m, (qa, zt), tc)})
@@ -1697,7 +1733,7 @@ def cached_train_phase(ctx: dict, seed: int) -> None:
         seg_tok=seg_tok, cache_pairs=int(cache.qa.shape[0]), cache_tokens=int(t_tok),
         cache_bytes=cache_bytes(cache), cache_build_s=build_s,
         launches_cache_build=n_build, launches_cached_train_step=n_train,
-        launches_cached_eval_step=n_eval, **times, max_memory_allocated_bytes=peak,
+        launches_cached_eval_step=n_eval, **times, **twice, max_memory_allocated_bytes=peak,
         generator_step={k: gen[k] for k in ("train_step_ms", "train_step_device_ms",
                                             "train_step_busy_share", "eval_step_ms",
                                             "eval_step_device_ms",
@@ -1756,6 +1792,11 @@ def plc_train_probes(cfg, tcfg, pcfg, bb, batch_np, seed: int) -> dict:
         gate(loss_rel <= 1e-6 and max(errs.values()) <= 1e-4,
              f"plc_train: K1 step against the plain stacks: loss {loss_rel:.3e}, "
              f"grads {max(errs.values()):.3e}")
+        def plc_once():
+            st = fresh()
+            met = train_step(st, bbs, a, tc, mk, seed + 1)
+            return [met, *st.head.state_dict().values(), *opt_state(st.opt)]
+        out.update(same_step_twice("plc_train", plc_once))
         out.update(launches_step=n_step, launches_plain_step=n_plain,
                    loss=float(metrics[0]), loss_rel_err_k1_vs_plain=loss_rel,
                    max_grad_rel_err_k1_vs_plain=max(errs.values()))
@@ -1932,6 +1973,12 @@ def pretrain_probes(cfg, tcfg, gcfg, start: str, x: torch.Tensor, seed: int) -> 
     gan_step, warmup_step, _ = pb.make_gan_pretrain_step(cfg, tcfg, gcfg)
     out = {}
     with fp32_exact():
+        for name, st0, fn in (("recon", rs, recon_step), ("gan", gs, gan_step)):
+            def once(st0=st0, fn=fn):           # with quantizer dropout and reseeding
+                st = copy.deepcopy(st0)
+                return [fn(st, x, seed + 1), *pretrain_state(st)]
+            out.update({f"{name}_{k}": v for k, v in
+                        same_step_twice(f"pretrain {name}", once).items()})
         torch.cuda.reset_peak_memory_stats()
         loss, n_recon, _ = counted(lambda: recon_step(rs, x, None))
         bad = bad_grads(rs.m.named_parameters())
@@ -2502,19 +2549,35 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def head_gap(a: torch.nn.Module, b: torch.nn.Module, lr: float) -> dict:
-    """Two heads after one step from the same start: the largest absolute
-    gap, and whether every leaf lies within rtol 1e-3, atol 1e-4 but for at
-    most 1e-3 of its elements, which lie within Adam's 2 lr (an element
-    whose gradient is at the noise floor of the step's atomic sums, the EMA's
-    ``index_add_`` among them, can flip its update's sign)."""
-    worst, ok = 0.0, True
-    for x, y in zip(a.state_dict().values(), b.state_dict().values()):
-        d = (x.float() - y.float()).abs()
-        worst = max(worst, float(d.max()))
-        miss = d > 1e-4 + 1e-3 * y.float().abs()
-        ok &= bool(miss.float().mean() <= 1e-3) and bool((d[miss] <= 2 * lr).all())
-    return {"max_abs_gap": worst, "close": ok}
+def head_gap(a: torch.nn.Module, b: torch.nn.Module) -> dict:
+    """Two heads after one step from the same start: whether every leaf and
+    buffer is bit-equal, and the largest absolute gap (reported)."""
+    pairs = list(zip(a.state_dict().values(), b.state_dict().values()))
+    return {"bit_equal": all(torch.equal(x, y) for x, y in pairs),
+            "max_abs_gap": max(float((x.float() - y.float()).abs().max()) for x, y in pairs)}
+
+
+def same_step_twice(name: str, run) -> dict:
+    """F6: ``run()`` takes one step from one start (fresh state, one batch,
+    one seed) and returns the tensors it leaves (metrics, parameters,
+    optimizer and EMA state); run twice they must be bit-equal (gated)."""
+    first, second = run(), run()
+    off = unequal(first, second)
+    ok = len(first) == len(second) and not off
+    gate(ok, f"{name}: the same step twice from one start differs in {len(off)} of "
+         f"{len(first)} tensors")
+    return {"same_step_twice_bit_equal": ok, "same_step_twice_tensors": len(first)}
+
+
+def pretrain_state(st: pb.PretrainState) -> list:
+    """What a pretraining step leaves: the backbone, its optimizer, the usage
+    counts, the discriminators and theirs."""
+    out = [*st.m.parameters(), *opt_state(st.opt)]
+    if st.vq_counts is not None:
+        out.append(st.vq_counts)
+    if st.d is not None:
+        out += [*st.d.parameters(), *opt_state(st.d_opt)]
+    return out
 
 
 def mesh_phase(m: allpred_ar.CodecModules, a, tc, ctx: dict, seed: int) -> None:
@@ -2567,11 +2630,13 @@ def mesh_phase(m: allpred_ar.CodecModules, a, tc, ctx: dict, seed: int) -> None:
             met0b = step0(s0b, xa, xt, seed + 1, do_ema=True)
             met1, n_step, _ = counted(lambda: step1(s1, sa, st, seed + 1, do_ema=True))
             train_eq = torch.equal(met0, met1)
-            gap, again = head_gap(s1.head, s0.head, tcfg.lr), head_gap(s0b.head, s0.head,
-                                                                        tcfg.lr)
+            gap, again = head_gap(s1.head, s0.head), head_gap(s0b.head, s0.head)
             gate(train_eq, f"mesh: the meshed train step's metrics differ: "
                  f"{met0.tolist()} / {met1.tolist()}")
-            gate(gap["close"], f"mesh: the meshed step's head off the meshless one's: {gap}")
+            gate(gap["bit_equal"], f"mesh: the meshed step's head is not the meshless "
+                 f"one's bit for bit: {gap}")
+            gate(again["bit_equal"] and torch.equal(met0, met0b),
+                 f"mesh: two meshless steps from one start differ: {again}")
             gate(n_step == expect(False, k1=8), f"mesh: launches a meshed train step {n_step}")
             prof = profile_calls("mesh_train_step", {
                 "meshless": lambda: step0(s0, xa, xt, seed + 1, True),
@@ -2832,6 +2897,116 @@ def sass_check() -> None:
          f"fp32 stack kernels off FFMA: {fp32}")
 
 
+ENCODER_STACKS = [(c, t) for c, t, _ in STACKS[:4]]     # the encoder's four stacks
+
+
+def grouped_cudnn(sets: list, x: torch.Tensor, dilations=resunit.DILATIONS) -> list:
+    """-> a call of cuDNN's convolutions of G stacks on x [B, G C, T], each
+    as one ``groups=G`` convolution over the weights concatenated along C_out
+    (the grouped stacks' library yardstick, convolutions alone)."""
+    ws = [(torch.cat([s[i].conv1.weight for s in sets]).to(x.dtype),
+           torch.cat([s[i].conv2.weight for s in sets]).to(x.dtype))
+          for i in range(len(sets[0]))]
+
+    def run():
+        y = x
+        for (w7, w1), d in zip(ws, dilations):
+            h = torch.nn.functional.conv1d(y, w7, None, dilation=d, padding=3 * d,
+                                           groups=len(sets))
+            y = torch.nn.functional.conv1d(h, w1, groups=len(sets))
+        return y
+    return run
+
+
+@torch.no_grad()
+def check_grouped(gen: torch.Generator) -> dict:
+    """Grouped K1 at the encoder's four stack shapes and grouped K3 at its two
+    narrow ones, two weight sets, batch 1, fp32 and bf16: bit-equal to two
+    single-stack launches (gated), within the kernel tolerance of the plain
+    version (gated), and timed by CUDA events beside the two single launches
+    and cuDNN's grouped convolutions of the same stacks, with the bound of
+    both stacks. -> the sums a kernel and dtype over its shapes."""
+    sums: dict = {}
+    for name, shapes in (("resunit_stack", ENCODER_STACKS),
+                         ("resunit_stack_tm", [s for s in ENCODER_STACKS if s[0] < dac.NARROW])):
+        tm = name == "resunit_stack_tm"
+        kernel = resunit_tm.resunit_stack_tm if tm else resunit.resunit_stack
+        plain = resunit_tm.resunit_stack_tm_ref if tm else resunit.resunit_stack_ref
+        for c, t in shapes:
+            sets = [make_units(c, gen, "cuda") for _ in range(2)]
+            post = torch.empty(2 * c).uniform_(0.5, 1.5, generator=gen).cuda()
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn(1, 2 * c, t, generator=gen).cuda().to(dt)
+                rows = x.view(2, c, t)
+                xin = rows.transpose(1, 2).contiguous() if tm else rows
+                one = [xin[g:g + 1].contiguous() for g in range(2)]
+                got = kernel(sets, xin, resunit.DILATIONS, post)
+                single = torch.cat([kernel(sets[g], one[g], resunit.DILATIONS,
+                                           post[g * c:(g + 1) * c]) for g in range(2)])
+                ref = plain(sets, xin, resunit.DILATIONS, post)
+                err = rel_err(got, ref)
+                same = torch.equal(got, single)
+                gate(same, f"grouped {name} C{c}@{t} {dtype_name(dt)}: not bit-equal to two "
+                     f"single-stack launches")
+                gate(err <= TOL[dt], f"grouped {name} C{c}@{t} {dtype_name(dt)}: rel err "
+                     f"{err:.3e} against the plain version")
+                b = stack_bound(c, t, dt)
+                row = {"ms": cuda_ms(lambda: kernel(sets, xin, resunit.DILATIONS, post)),
+                       "two_single_ms": cuda_ms(lambda: [
+                           kernel(sets[g], one[g], resunit.DILATIONS, post[g * c:(g + 1) * c])
+                           for g in range(2)]),
+                       "library_ms": cuda_ms(grouped_cudnn(sets, x)),
+                       "bound_ms": 2 * b["bound_ms"]}
+                say("grouped_kernel", kernel=name, C=c, T=t, dtype=dtype_name(dt), groups=2,
+                    bit_equal_two_single=same, rel_err_plain=err,
+                    max_abs_err=float((got.float() - ref.float()).abs().max()), **row)
+                tot = sums.setdefault(f"{name}_{dtype_name(dt)}", {})
+                for k, v in row.items():
+                    tot[k] = tot.get(k, 0.0) + v
+    return sums
+
+
+def dual_encoder_phase(m: allpred_ar.CodecModules, a, tc, many: tuple, default: dict,
+                       gen: torch.Generator) -> None:
+    """``CodecConfig.vmap_dual_encoder``; see the module docstring (phase 23)."""
+    t_phase = time.perf_counter()
+    with fp32_exact():
+        grouped = check_grouped(gen)
+    md = allpred_ar.codec_of(m.audio_dac, m.tactile_dac, m.head,
+                             dataclasses.replace(m.cfg, vmap_dual_encoder=True))
+    out: dict = {"grouped_kernels": grouped}
+    for fast in (False, True):
+        dt = dtype_name(dtype_of(fast))
+        for batch in (1, 32):
+            codecs = {k: StreamingCodec(mod, batch=batch, frame_sec=1.0, fast=fast,
+                                        compute_dtype=dtype_of(fast))
+                      for k, mod in (("off", m), ("on", md))}
+            xa, xt = (a, tc) if batch == 1 else (many[0][:batch], many[1][:batch])
+            res = {k: counted(lambda: sc.encode(xa, xt)) for k, sc in codecs.items()}
+            want = {"off": expect(fast, k1=8), "on": expect(fast, k1=4)}
+            gate(all(res[k][1] == want[k] for k in res),
+                 f"dual_encoder {dt} batch {batch}: launches an encode "
+                 f"{ {k: r[1] for k, r in res.items()} }, want {want}")
+            codes_eq = torch.equal(res["on"][0][1], res["off"][0][1])
+            z_eq = torch.equal(res["on"][0][0], res["off"][0][0])
+            gate(codes_eq and z_eq, f"dual_encoder {dt} batch {batch}: codes equal {codes_eq}, "
+                 f"z_run equal {z_eq} to the sequential encoders'")
+            prof = profile_calls(f"dual_encoder_{dt}_b{batch}", {
+                k: (lambda sc=sc: sc.encode(xa, xt)) for k, sc in codecs.items()})
+            out[f"{dt}_b{batch}"] = {
+                "launches": {k: r[1]["resunit_stack"] for k, r in res.items()},
+                "codes_equal": codes_eq, "z_run_bit_equal": z_eq,
+                **{f"encode_ms_{k}": cuda_ms(lambda: sc.encode(xa, xt), reps=5)
+                   for k, sc in codecs.items()},
+                **{f"encode_device_ms_{k}": p["device_ms"] for k, p in prof.items()}}
+    f32 = latents(md, False, {}, many)
+    same = bool((f32["codes"] == default["fp32_many"]["codes"]).all())
+    gate(same, "dual_encoder: fp32 codes of the 64 streams differ from the sequential path's")
+    out["fp32_many_codes_equal"] = same
+    parity("dual_encoder", f32, latents(md, True, {}, many))
+    say("dual_encoder", **out, wall_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2911,6 +3086,7 @@ def main() -> int:
     mesh_phase(m, a, tc, ctx, args.seed)
     dac_import_phase(args.seed, a)
     tooling_phase(m, a, tc, default)
+    dual_encoder_phase(m, a, tc, many, default, gen)
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} gate(s) failed", file=sys.stderr)
         return 1

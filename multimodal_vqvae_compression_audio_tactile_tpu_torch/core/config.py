@@ -9,13 +9,15 @@ names and meanings: ``time_major``/``time_major_enc`` run the decoder/encoder
 in ``[B, T, C]`` (``ops/timeconv.py``), ``tail_kernel`` sends every narrow
 (C < 256) residual-unit stack through the time-major kernel K3, and
 ``poly_upsample`` runs the channels-first decoder's upsampling in polyphase
-form. All four are off by default. ``asdict_jsonable`` is the JAX
-package's function of that name (a run's ``meta.json`` entries).
+form. All four are off by default, as is ``vmap_dual_encoder`` (both
+encoders in one pass, their stacks as grouped launches). ``asdict_jsonable`` and ``dump_config`` are
+the JAX package's functions of those names (a run's ``meta.json`` entries).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 from dataclasses import dataclass, field
 from typing import Any, Tuple
@@ -100,6 +102,11 @@ class CodecConfig:
     scale_init: float = 0.08
     scale_min: float = 5e-3
     scale_max: float = 0.5
+    # run the two frozen encoders (audio, tactile) in one pass, each stack a
+    # grouped kernel launch over both weight sets (``models/dac.py::
+    # dual_encode``; JAX: one vmapped call over stacked params). Off by
+    # default, as in JAX.
+    vmap_dual_encoder: bool = False
 
     def with_rvq(self, n_books: int, n_embed: int) -> "CodecConfig":
         return dataclasses.replace(
@@ -254,3 +261,10 @@ def asdict_jsonable(cfg: Any) -> dict:
         return x
 
     return conv(dataclasses.asdict(cfg))
+
+
+def dump_config(cfg: Any, path: str) -> None:
+    """Write ``asdict_jsonable(cfg)`` to ``path`` as indented JSON, as the
+    JAX package's function of that name."""
+    with open(path, "w") as f:
+        json.dump(asdict_jsonable(cfg), f, indent=2)

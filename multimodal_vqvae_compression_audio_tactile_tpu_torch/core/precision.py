@@ -8,7 +8,8 @@ fp32 convolutions and products to HIGHEST precision (``models/dac.py:49-60``,
 ``core/precision.py:43-59`` there). ``fp32_exact`` turns TF32 off for the
 duration of a call and gives the caller's settings back after it, so the
 port's fp32 entry points compute in true fp32 without changing TF32 for the
-rest of the process.
+rest of the process. ``deterministic_steps`` does the same for cuDNN's
+choice of algorithms around a training step.
 """
 
 from __future__ import annotations
@@ -38,3 +39,24 @@ def fp32_exact(active: bool = True) -> Iterator[None]:
     finally:
         torch.backends.cudnn.allow_tf32 = conv
         torch.backends.cuda.matmul.allow_tf32 = mm
+
+
+@contextlib.contextmanager
+def deterministic_steps() -> Iterator[None]:
+    """Inside the block, cuDNN picks only deterministic algorithms
+    (``torch.backends.cudnn.deterministic``) and does not time candidates
+    (``benchmark`` off), so a training step's convolutions, their backward
+    ones included, sum in the same order on every run; on exit, an
+    exception included, both flags are what they were. The port's training
+    steps run inside it: one start, one batch and one seed give the same
+    bits, as the JAX package's steps do. Process-wide while the block runs,
+    like ``fp32_exact``; it leaves ``torch.use_deterministic_algorithms``
+    alone, so serving and callers' code are not changed by it."""
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = bench

@@ -59,8 +59,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "resunit_groups.cuh"
+
 namespace ffma_core {
 namespace {
+
+using resunit_groups::Sets;
+using resunit_groups::pick;
 
 constexpr int MAX_DIL = 9;
 constexpr int STAGES = 2;       // cp.async ring depth
@@ -144,7 +149,9 @@ struct Tile {
       232448 / smem_bytes() < 512 / THREADS ? 232448 / smem_bytes() : 512 / THREADS;
 };
 
-// in: x or hs (KT = 7), h2 (KT = 1); w: fp32 [C_out, C_in, KT] (nn.Conv1d).
+// in: x or hs (KT = 7), h2 (KT = 1); S: the weight sets (resunit_groups.cuh),
+// block z reading set z % S.n: w fp32 [C_out, C_in, KT] (nn.Conv1d), bias,
+// alpha_in, alpha_out, alpha_next.
 // KT = 7: out = h2; SNAKE: alpha_in = snake_a1, applied to each staged
 //         element (unit 0), else `in` is already snaked; alpha_out = a2;
 //         resid, alpha_next, hs_next unused.
@@ -153,11 +160,9 @@ struct Tile {
 //         snake_alpha_next(x'). All [B, C, T] when CF (K1), else [B, T, C].
 template <int KT, bool CF, bool SNAKE, int WM, int WN, int STEPS>
 __global__ void __launch_bounds__(32 * WM * WN, (Tile<KT, CF, WM, WN, STEPS>::MIN_BLOCKS))
-ffma_unit_kernel(const float* __restrict__ in, const float* __restrict__ w,
-                 const float* __restrict__ bias, const float* __restrict__ alpha_in,
-                 const float* __restrict__ alpha_out, const float* __restrict__ alpha_next,
-                 const float* __restrict__ resid, float* __restrict__ out,
-                 float* __restrict__ hs_next, int C, int Tlen, int dil) {
+ffma_unit_kernel(const float* __restrict__ in, const Sets S, const float* __restrict__ resid,
+                 float* __restrict__ out, float* __restrict__ hs_next, int C, int Tlen,
+                 int dil) {
   using G = Tile<KT, CF, WM, WN, STEPS>;
   constexpr int WT = G::WT;
   extern __shared__ __align__(16) float ffma_smem[];
@@ -168,6 +173,12 @@ ffma_unit_kernel(const float* __restrict__ in, const float* __restrict__ w,
   const int d = KT == 7 ? dil : 1;
   const int s0 = blockIdx.x * G::NTG, co0 = blockIdx.y * G::TN;
   const size_t base = (size_t)blockIdx.z * C * Tlen;
+  const int grp = blockIdx.z % S.n;               // this row's weight set
+  const float* __restrict__ w = (const float*)pick(S.w, grp);
+  const float* __restrict__ bias = pick(S.bias, grp);
+  const float* __restrict__ alpha_in = pick(S.alpha_in, grp);
+  const float* __restrict__ alpha_out = pick(S.alpha_out, grp);
+  const float* __restrict__ alpha_next = pick(S.alpha_next, grp);
   // the block's input window [t_lo, t_lo + win): its slots' g, with the halo
   const int g_lo = s0 / d, g_hi = (s0 + G::NTG - 1) / d;
   const int t_lo = WT * d * g_lo - G::HALO * d;
@@ -378,9 +389,8 @@ dim3 grid_of(int B, int C, int Tlen, int dil) {
 }
 
 template <int KT, bool CF, bool SNAKE, int WM, int WN, int STEPS>
-int launch_tile(const void* in, const void* w, const void* bias, const void* alpha_in,
-                const void* alpha_out, const void* alpha_next, const void* resid, void* out,
-                void* hs_next, int B, int C, int Tlen, int dil, void* stream) {
+int launch_tile(const void* in, const Sets& S, const void* resid, void* out, void* hs_next,
+                int B, int C, int Tlen, int dil, void* stream) {
   using G = Tile<KT, CF, WM, WN, STEPS>;
   auto kernel = ffma_unit_kernel<KT, CF, SNAKE, WM, WN, STEPS>;
   // above 48 KB of dynamic shared memory needs the opt-in, once per kernel
@@ -389,9 +399,7 @@ int launch_tile(const void* in, const void* w, const void* bias, const void* alp
   if (attr != 0) return attr;
   kernel<<<grid_of<KT, WM, WN, STEPS>(B, C, Tlen, dil), G::THREADS, G::smem_bytes(),
            (cudaStream_t)stream>>>(
-      (const float*)in, (const float*)w, (const float*)bias, (const float*)alpha_in,
-      (const float*)alpha_out, (const float*)alpha_next, (const float*)resid, (float*)out,
-      (float*)hs_next, C, Tlen, dil);
+      (const float*)in, S, (const float*)resid, (float*)out, (float*)hs_next, C, Tlen, dil);
   return (int)cudaGetLastError();
 }
 
@@ -401,22 +409,20 @@ int launch_tile(const void* in, const void* w, const void* bias, const void* alp
 // stack shapes where the wrapper's pick_ffma_tile chooses it.
 #define FFMA_TILES(X) X(64, 64, 2, 2, 8) X(128, 32, 4, 1, 8) X(32, 64, 2, 2, 4) X(64, 32, 2, 1, 8)
 
-// one unit's launch with the (t_tile, co_tile) that the wrapper's pick_ffma_tile
-// chose; a k=7 launch with alpha_in snakes its input while staging it
+// one unit's launch over the weight sets S (B rows in all) with the (t_tile,
+// co_tile) that the wrapper's pick_ffma_tile chose; a k=7 launch with
+// alpha_in snakes its input while staging it
 template <int KT, bool CF>
-int launch(int t_tile, int co_tile, const void* in, const void* w, const void* bias,
-           const void* alpha_in, const void* alpha_out, const void* alpha_next,
-           const void* resid, void* out, void* hs_next, int B, int C, int Tlen, int dil,
-           void* stream) {
+int launch(int t_tile, int co_tile, const void* in, const Sets& S, const void* resid,
+           void* out, void* hs_next, int B, int C, int Tlen, int dil, void* stream) {
+  if (S.n < 1 || B % S.n != 0) return (int)cudaErrorInvalidValue;
 #define FFMA_TILE(TM_, TN_, WM_, WN_, S_)                                              \
   if (t_tile == TM_ && co_tile == TN_)                                                 \
-    return KT == 7 && alpha_in != nullptr                                              \
-        ? launch_tile<KT, CF, KT == 7, WM_, WN_, S_>(in, w, bias, alpha_in, alpha_out,  \
-                                                     alpha_next, resid, out, hs_next,  \
-                                                     B, C, Tlen, dil, stream)           \
-        : launch_tile<KT, CF, false, WM_, WN_, S_>(in, w, bias, alpha_in, alpha_out,    \
-                                                   alpha_next, resid, out, hs_next, B,  \
-                                                   C, Tlen, dil, stream);
+    return KT == 7 && S.alpha_in[0] != nullptr                                         \
+        ? launch_tile<KT, CF, KT == 7, WM_, WN_, S_>(in, S, resid, out, hs_next, B, C,  \
+                                                     Tlen, dil, stream)                 \
+        : launch_tile<KT, CF, false, WM_, WN_, S_>(in, S, resid, out, hs_next, B, C,    \
+                                                   Tlen, dil, stream);
   FFMA_TILES(FFMA_TILE)
 #undef FFMA_TILE
   return (int)cudaErrorInvalidValue;

@@ -54,10 +54,15 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "resunit_groups.cuh"
+
 namespace mma_core {
 namespace {
 
 using bf16 = __nv_bfloat16;
+using resunit_groups::MAX_GROUPS;
+using resunit_groups::Sets;
+using resunit_groups::pick;
 
 constexpr int CK = 32;            // input channels per stage: two k16 steps
 constexpr int PITCH = CK + 8;     // bf16 per shared-memory row (80 bytes)
@@ -132,8 +137,9 @@ struct Tile {
   }
 };
 
-// in: hs (KT = 7) or h2 (KT = 1), bf16 [B, T, C]; w: this unit's packed bf16
-// weights, [KT][C_out][C_in].
+// in: hs (KT = 7) or h2 (KT = 1), bf16 [B, T, C]; S: the weight sets
+// (resunit_groups.cuh), block z reading set z % S.n: w this unit's packed
+// bf16 weights, [KT][C_out][C_in], bias, alpha_out, alpha_next.
 // KT = 7: out = h2 bf16 [B, T, C]; alpha_out = a2; resid, alpha_next and
 //         hs_next unused.
 // KT = 1: resid (type TX) and out (type TO) are [B, C, T] when CF (K1), else
@@ -144,9 +150,7 @@ struct Tile {
 // (two blocks an SM, which their shared memory allows: registers up to 128)
 template <int KT, int TM, int TN, int WM, int WN, bool CF, typename TX, typename TO>
 __global__ void __launch_bounds__(32 * WM * WN, 2)
-mma_unit_kernel(const bf16* __restrict__ in, const bf16* __restrict__ w,
-                const float* __restrict__ bias, const float* __restrict__ alpha_out,
-                const float* __restrict__ alpha_next, const void* __restrict__ resid_,
+mma_unit_kernel(const bf16* __restrict__ in, const Sets S, const void* __restrict__ resid_,
                 void* __restrict__ out_, bf16* __restrict__ hs_next, int C, int Tlen,
                 int dil) {
   using G = Tile<KT, TM, TN, WM, WN>;
@@ -156,6 +160,11 @@ mma_unit_kernel(const bf16* __restrict__ in, const bf16* __restrict__ w,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t0 = blockIdx.x * TM, co0 = blockIdx.y * TN;
   const size_t base = (size_t)blockIdx.z * C * Tlen;
+  const int grp = blockIdx.z % S.n;               // this row's weight set
+  const bf16* __restrict__ w = (const bf16*)pick(S.w, grp);
+  const float* __restrict__ bias = pick(S.bias, grp);
+  const float* __restrict__ alpha_out = pick(S.alpha_out, grp);
+  const float* __restrict__ alpha_next = pick(S.alpha_next, grp);
   const int halo = (KT - 1) / 2 * dil;
   const int win = TM + 2 * halo;
   const int stage_elems = (win + KT * TN) * PITCH;
@@ -312,20 +321,23 @@ mma_unit_kernel(const bf16* __restrict__ in, const bf16* __restrict__ w,
   }
 }
 
-// A stack's fp32 weights: w7[u] [C, C, 7] and w1[u] [C, C, 1] (nn.Conv1d).
+// The fp32 weights of G stacks of n units: w7[s] [C, C, 7] and w1[s] [C, C, 1]
+// (nn.Conv1d) of set g's unit u at s = g n + u.
+constexpr int MAX_STACKED = MAX_GROUPS * MAX_UNITS;
 struct StackWeights {
-  const float* w7[MAX_UNITS];
-  const float* w1[MAX_UNITS];
+  const float* w7[MAX_STACKED];
+  const float* w1[MAX_STACKED];
 };
 
 // Unit u's k = KT weights W[co, ci, j] (fp32, nn.Conv1d layout) rounded to
-// bf16 into dst + u * 8 C^2 as [j][co][ci]. An item is one output channel's
+// bf16 into dst + u * 8 C^2 as [j][co][ci], for u < n_units (all the sets'
+// units, g n + u). An item is one output channel's
 // 4 input channels: 4 KT contiguous floats in, KT runs of 4 bf16 out, so
 // neighbouring threads read and write neighbouring addresses. vec: C % 4 == 0
 // and the weights 16-byte aligned, so an item is KT float4 loads and KT
 // 8-byte stores.
 template <int KT>
-__device__ __forceinline__ void pack_weights(const float* const (&w)[MAX_UNITS], int n_units,
+__device__ __forceinline__ void pack_weights(const float* const (&w)[MAX_STACKED], int n_units,
                                              int C, bool vec, bf16* __restrict__ dst,
                                              long long first, long long stride) {
   const int n4 = (C + 3) / 4;
@@ -366,20 +378,23 @@ __device__ __forceinline__ void pack_weights(const float* const (&w)[MAX_UNITS],
 
 // The first snake_blocks blocks: hs = bf16(snake_alpha(x)) [B, T, C] from x
 // [B, C, T] (CF) or [B, T, C], in 32 x 32 tiles through shared memory, so
-// that reads and writes are both coalesced when the layouts differ. The
-// other blocks: each unit u's weights rounded to bf16 into wp + u * 8 C^2,
-// w7 as [7][C_out][C_in], then w1 as [C_out][C_in].
+// that reads and writes are both coalesced when the layouts differ; row z
+// takes set z % A.n's alpha (A.alpha_in). The other blocks: each stacked
+// unit s's weights rounded to bf16 into wp + s * 8 C^2, w7 as
+// [7][C_out][C_in], then w1 as [C_out][C_in].
 template <bool CF>
 __global__ void __launch_bounds__(256)
-prologue_kernel(const bf16* __restrict__ x, const float* __restrict__ alpha,
-                bf16* __restrict__ hs, int C, int Tlen, int snake_blocks,
-                StackWeights sw, int n_units, bool vec, bf16* __restrict__ wp) {
+prologue_kernel(const bf16* __restrict__ x, const Sets A, bf16* __restrict__ hs, int C,
+                int Tlen, int snake_blocks, StackWeights sw, int n_units, bool vec,
+                bf16* __restrict__ wp) {
   const int tid = threadIdx.x;
   if ((int)blockIdx.x < snake_blocks) {
     __shared__ float tile[32][33];
     const int tiles_t = (Tlen + 31) / 32, tiles_c = (C + 31) / 32;
     const int bt = blockIdx.x % tiles_t, bc = (blockIdx.x / tiles_t) % tiles_c;
-    const size_t base = (size_t)(blockIdx.x / (tiles_t * tiles_c)) * C * Tlen;
+    const int z = blockIdx.x / (tiles_t * tiles_c);
+    const size_t base = (size_t)z * C * Tlen;
+    const float* __restrict__ alpha = pick(A.alpha_in, z % A.n);
     const int t0 = bt * 32, c0 = bc * 32, tx = tid & 31, ty = tid >> 5;
     for (int k = ty; k < 32; k += 8) {
       // CF: lanes along t; time-major: lanes along c
@@ -405,8 +420,7 @@ prologue_kernel(const bf16* __restrict__ x, const float* __restrict__ alpha,
 }
 
 template <int KT, int TM, int TN, int WM, int WN, bool CF, typename TX, typename TO>
-int launch_tile(const void* in, const void* w, const void* bias, const void* alpha_out,
-                const void* alpha_next, const void* resid, void* out, void* hs_next,
+int launch_tile(const void* in, const Sets& S, const void* resid, void* out, void* hs_next,
                 int B, int C, int Tlen, int dil, void* stream) {
   using G = Tile<KT, TM, TN, WM, WN>;
   auto kernel = mma_unit_kernel<KT, TM, TN, WM, WN, CF, TX, TO>;
@@ -416,8 +430,7 @@ int launch_tile(const void* in, const void* w, const void* bias, const void* alp
   if (attr != 0) return attr;
   dim3 grid((Tlen + TM - 1) / TM, (C + TN - 1) / TN, B);
   kernel<<<grid, G::THREADS, G::smem_bytes(TM + (KT - 1) * dil), (cudaStream_t)stream>>>(
-      (const bf16*)in, (const bf16*)w, (const float*)bias, (const float*)alpha_out,
-      (const float*)alpha_next, resid, out, (bf16*)hs_next, C, Tlen, dil);
+      (const bf16*)in, S, resid, out, (bf16*)hs_next, C, Tlen, dil);
   return (int)cudaGetLastError();
 }
 
@@ -427,15 +440,16 @@ int launch_tile(const void* in, const void* w, const void* bias, const void* alp
 // fastest where the grid fills the card.
 #define MMA_TILES(X) X(128, 32, 4, 2) X(64, 32, 2, 2) X(32, 32, 1, 2)
 
-// one unit's launch with the (t_tile, co_tile) that the wrapper's pick_tile chose
+// one unit's launch over the weight sets S (B rows in all) with the (t_tile,
+// co_tile) that the wrapper's pick_tile chose
 template <int KT, bool CF, typename TX, typename TO>
-int launch(int t_tile, int co_tile, const void* in, const void* w, const void* bias,
-           const void* alpha_out, const void* alpha_next, const void* resid, void* out,
-           void* hs_next, int B, int C, int Tlen, int dil, void* stream) {
+int launch(int t_tile, int co_tile, const void* in, const Sets& S, const void* resid,
+           void* out, void* hs_next, int B, int C, int Tlen, int dil, void* stream) {
+  if (S.n < 1 || B % S.n != 0) return (int)cudaErrorInvalidValue;
 #define MMA_TILE(TM_, TN_, WM_, WN_)                                                  \
   if (t_tile == TM_ && co_tile == TN_)                                                \
-    return launch_tile<KT, TM_, TN_, WM_, WN_, CF, TX, TO>(                           \
-        in, w, bias, alpha_out, alpha_next, resid, out, hs_next, B, C, Tlen, dil, stream);
+    return launch_tile<KT, TM_, TN_, WM_, WN_, CF, TX, TO>(in, S, resid, out, hs_next, B, \
+                                                           C, Tlen, dil, stream);
   MMA_TILES(MMA_TILE)
 #undef MMA_TILE
   return (int)cudaErrorInvalidValue;
@@ -452,26 +466,28 @@ inline int smem_bytes(int kt, int t_tile, int co_tile, int dil) {
   return -1;
 }
 
-// the prologue of a bf16 stack of n_units: x bf16, w7[u], w1[u] fp32; wp
-// bf16 [n_units * 8 C^2]
+// the prologue of bf16 stacks of n_units over the sets A (A.alpha_in: each
+// set's unit-0 snake): x bf16 [B rows]; w7[s], w1[s] fp32 of set g's unit u at
+// s = g n_units + u; wp bf16 [A.n n_units 8 C^2]
 template <bool CF>
-int launch_prologue(const void* x, const void* alpha, void* hs, const void* const* w7,
+int launch_prologue(const void* x, const Sets& A, void* hs, const void* const* w7,
                     const void* const* w1, int n_units, void* wp, int B, int C, int Tlen,
                     void* stream) {
-  if (n_units < 1 || n_units > MAX_UNITS) return (int)cudaErrorInvalidValue;
+  if (n_units < 1 || n_units > MAX_UNITS || A.n < 1 || B % A.n != 0)
+    return (int)cudaErrorInvalidValue;
+  const int stacked = A.n * n_units;
   StackWeights sw = {};
   bool vec = C % 4 == 0;
-  for (int u = 0; u < n_units; ++u) {
+  for (int u = 0; u < stacked; ++u) {
     sw.w7[u] = (const float*)w7[u];
     sw.w1[u] = (const float*)w1[u];
     vec = vec && (uintptr_t)w7[u] % 16 == 0 && (uintptr_t)w1[u] % 16 == 0;
   }
   const int snake_blocks = ((Tlen + 31) / 32) * ((C + 31) / 32) * B;
-  const long long items = (long long)n_units * C * ((C + 3) / 4);   // per kernel size
+  const long long items = (long long)stacked * C * ((C + 3) / 4);   // per kernel size
   const int pack_blocks = (int)((items + 255) / 256 < 4096 ? (items + 255) / 256 : 4096);
   prologue_kernel<CF><<<snake_blocks + pack_blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)alpha, (bf16*)hs, C, Tlen, snake_blocks, sw, n_units,
-      vec, (bf16*)wp);
+      (const bf16*)x, A, (bf16*)hs, C, Tlen, snake_blocks, sw, stacked, vec, (bf16*)wp);
   return (int)cudaGetLastError();
 }
 

@@ -40,11 +40,17 @@
 // launch snakes x on the way in; each k=1 launch but the last also writes the
 // next unit's snaked operand, which the next k=7 launch reads as it is. So an
 // fp32 stack of n units is 2 n launches, h2 channels-first [B, C, T].
+//
+// Every launch takes G weight sets (resunit_groups.cuh): G = 2 runs the dual
+// encoder's audio and tactile stacks in one launch over [B 2] rows, row
+// b 2 + g with set g's weights, so a grouped stack is still 2 n (+ 1) launches.
+// Each pointer argument named with [] is a host array of G pointers, one a set.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "resunit_groups.cuh"
 #include "resunit_ffma.cuh"
 #include "resunit_mma.cuh"
 
@@ -52,55 +58,58 @@ namespace {
 
 constexpr int MAX_HALO = 27;    // 3 * max dilation (9)
 
+using resunit_groups::make_sets;
+
 }  // namespace
 
 extern "C" {
 
-// The prologue of a bf16 stack of n_units (1..3): hs = bf16(snake_a1(x))
-// [B, T, C], unit 0's operand, from x [B, C, T] bf16; and each unit u's fp32
-// weights w7_u [C, C, 7], w1_u [C, C, 1] rounded to bf16 and packed into
-// wp + u * 8 C^2 as [7][C_out][C_in] then [C_out][C_in] (the w7/w1 arguments
-// of the bf16 launches below)
-int resunit_prologue(const void* x, const void* a1, void* hs, const void* w7_0,
-                     const void* w7_1, const void* w7_2, const void* w1_0,
-                     const void* w1_1, const void* w1_2, int n_units, void* wp, int B,
-                     int C, int Tlen, void* stream) {
-  const void* w7[] = {w7_0, w7_1, w7_2};
-  const void* w1[] = {w1_0, w1_1, w1_2};
-  return mma_core::launch_prologue<true>(x, a1, hs, w7, w1, n_units, wp, B, C, Tlen, stream);
+// The prologue of G bf16 stacks of n_units (1..3): hs = bf16(snake_a1(x))
+// [B, T, C], unit 0's operand, from x [B, C, T] bf16, row z with set z % G's
+// a1[]; and the fp32 weights w7[s] [C, C, 7], w1[s] [C, C, 1] of set g's unit
+// u, s = g n_units + u (host arrays of G n_units pointers), rounded to bf16 and
+// packed into wp + s * 8 C^2 as [7][C_out][C_in] then [C_out][C_in] (the w7[]/
+// w1[] arguments of the bf16 launches below)
+int resunit_prologue(const void* x, int groups, const void* const* a1, void* hs,
+                     const void* const* w7, const void* const* w1, int n_units, void* wp,
+                     int B, int C, int Tlen, void* stream) {
+  return mma_core::launch_prologue<true>(
+      x, make_sets(groups, nullptr, nullptr, a1, nullptr, nullptr), hs, w7, w1, n_units, wp,
+      B, C, Tlen, stream);
 }
 
 // h2 = snake_a2(conv7_dil(snake_a1(x)) + b7), with the tile (t_tile,
-// co_tile). fp32: x and h2 [B, C, T], w7 [C, C, 7] (nn.Conv1d layout); with
+// co_tile). fp32: x and h2 [B, C, T], w7[] [C, C, 7] (nn.Conv1d layout); with
 // a1 null, x is already snake_a1(x) (hs from the previous k=1 launch). bf16:
-// x is hs = bf16(snake_a1(x)) [B, T, C] (a1 unused), w7 the unit's packed
+// x is hs = bf16(snake_a1(x)) [B, T, C] (a1 unused), w7[] the unit's packed
 // [7][C][C] from the prologue, h2 [B, T, C].
-int resunit_conv7(const void* x, const void* w7, const void* b7, const void* a1,
-                  const void* a2, void* h2, int B, int C, int Tlen, int dil,
-                  int is_bf16, int t_tile, int co_tile, void* stream) {
+int resunit_conv7(const void* x, int groups, const void* const* w7, const void* const* b7,
+                  const void* const* a1, const void* const* a2, void* h2, int B, int C,
+                  int Tlen, int dil, int is_bf16, int t_tile, int co_tile, void* stream) {
   if (dil < 1 || 3 * dil > MAX_HALO) return (int)cudaErrorInvalidValue;
   return is_bf16
       ? mma_core::launch<7, true, __nv_bfloat16, __nv_bfloat16>(
-            t_tile, co_tile, x, w7, b7, a2, nullptr, nullptr, h2, nullptr, B, C, Tlen,
-            dil, stream)
-      : ffma_core::launch<7, true>(t_tile, co_tile, x, w7, b7, a1, a2, nullptr, nullptr,
-                                   h2, nullptr, B, C, Tlen, dil, stream);
+            t_tile, co_tile, x, make_sets(groups, w7, b7, nullptr, a2, nullptr), nullptr, h2,
+            nullptr, B, C, Tlen, dil, stream)
+      : ffma_core::launch<7, true>(t_tile, co_tile, x,
+                                   make_sets(groups, w7, b7, a1, a2, nullptr), nullptr, h2,
+                                   nullptr, B, C, Tlen, dil, stream);
 }
 
 // out = x + W1 . h2 + b1, then snake_post when post_alpha is not null;
-// x, out [B, C, T]; h2 as resunit_conv7 wrote it; w1 [C, C, 1] fp32, or in
+// x, out [B, C, T]; h2 as resunit_conv7 wrote it; w1[] [C, C, 1] fp32, or in
 // bf16 the unit's packed [C][C]. With hs_next not null, also the next unit's
 // operand hs_next = snake_a1_next(out): fp32 [B, C, T], or bf16 [B, T, C].
-int resunit_conv1(const void* x, const void* h2, const void* w1, const void* b1,
-                  const void* post_alpha, const void* a1_next, void* hs_next, void* out,
-                  int B, int C, int Tlen, int is_bf16, int t_tile, int co_tile,
-                  void* stream) {
+int resunit_conv1(const void* x, const void* h2, int groups, const void* const* w1,
+                  const void* const* b1, const void* const* post_alpha,
+                  const void* const* a1_next, void* hs_next, void* out, int B, int C,
+                  int Tlen, int is_bf16, int t_tile, int co_tile, void* stream) {
+  const auto sets = make_sets(groups, w1, b1, nullptr, post_alpha, a1_next);
   return is_bf16
       ? mma_core::launch<1, true, __nv_bfloat16, __nv_bfloat16>(
-            t_tile, co_tile, h2, w1, b1, post_alpha, a1_next, x, out, hs_next, B, C,
-            Tlen, 1, stream)
-      : ffma_core::launch<1, true>(t_tile, co_tile, h2, w1, b1, nullptr, post_alpha,
-                                   a1_next, x, out, hs_next, B, C, Tlen, 1, stream);
+            t_tile, co_tile, h2, sets, x, out, hs_next, B, C, Tlen, 1, stream)
+      : ffma_core::launch<1, true>(t_tile, co_tile, h2, sets, x, out, hs_next, B, C, Tlen,
+                                   1, stream);
 }
 
 // dynamic shared memory of one bf16 launch (kt = 7 or 1) of the tile at

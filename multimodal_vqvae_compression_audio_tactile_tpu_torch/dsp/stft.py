@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.rvq import take_rows
+
 
 def hann_window(win_length: int) -> torch.Tensor:
     """Periodic Hann window (``torch.hann_window``'s default), fp32 on the CPU."""
@@ -28,16 +30,24 @@ def hann_window(win_length: int) -> torch.Tensor:
 
 def _reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
     """x [..., T] reflect-padded by p on both sides, for any p (numpy's
-    repeated reflection when p >= T; ``F.pad`` takes only p < T)."""
+    repeated reflection when p >= T; ``F.pad`` takes only p < T), out of
+    slices, flips and a concatenation, or ``take_rows``: the backward of
+    ``F.pad``'s reflect mode accumulates with atomics on the card."""
     T = x.shape[-1]
     if p < T:
-        lead = x.shape[:-1]
-        return F.pad(x.reshape(-1, 1, T), (p, p), mode="reflect").reshape(*lead, T + 2 * p)
+        return torch.cat([x[..., 1:p + 1].flip(-1), x, x[..., -p - 1:-1].flip(-1)], dim=-1)
     i = torch.arange(-p, T + p, device=x.device)
-    if T == 1:
-        return x[..., torch.zeros_like(i)]
-    j = torch.remainder(i, 2 * (T - 1))
-    return x[..., torch.where(j >= T, 2 * (T - 1) - j, j)]
+    j = torch.zeros_like(i) if T == 1 else torch.remainder(i, 2 * (T - 1))
+    j = torch.where(j >= T, 2 * (T - 1) - j, j)
+    return take_rows(x.movedim(-1, 0), j).movedim(0, -1)
+
+
+def reflect_pad_right(x: torch.Tensor, p: int) -> torch.Tensor:
+    """x [..., T] reflect-padded by p < T on the right, as ``F.pad(...,
+    mode="reflect")`` pads, out of slices, flips and a concatenation: their
+    backward writes each gradient once, where the card's backward of
+    ``F.pad``'s reflect mode accumulates with atomics."""
+    return torch.cat([x, x[..., -p - 1:-1].flip(-1)], dim=-1) if p else x
 
 
 def stft_complex(x: torch.Tensor, n_fft: int, hop: int,

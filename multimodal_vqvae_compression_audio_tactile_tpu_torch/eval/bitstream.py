@@ -219,6 +219,12 @@ def peek(data: bytes) -> tuple[int, int, int]:
     return T, n_books, 1 << n_bits
 
 
+def nominal_bits(n_tokens: int, n_books: int, K: int) -> int:
+    """The reference's rate model: tokens * books * ceil(log2 K) bits, as the
+    JAX package's ``nominal_bits``."""
+    return n_tokens * n_books * _log2i(K)
+
+
 def empirical_kbps(n_bytes: int, seconds: float) -> float:
     """The wire rate of ``n_bytes`` over ``seconds`` of signal, in kbps."""
     return n_bytes * 8.0 / seconds / 1000.0

@@ -27,7 +27,7 @@ from torch import nn
 
 from ..core.config import GanConfig
 from ..core.precision import fp32_exact
-from ..dsp.stft import stft_complex
+from ..dsp.stft import reflect_pad_right, stft_complex
 from ..parallel.mesh import batch_mean
 
 MPD_CHANNELS = (32, 128, 512, 1024)
@@ -82,7 +82,7 @@ class MPD(nn.Module):
         B, C, T = x.shape
         pad = (-T) % period
         if pad:
-            x = F.pad(x, (0, pad), mode="reflect")
+            x = reflect_pad_right(x, pad)
         y = x.reshape(B, C, (T + pad) // period, period)
         feats = []
         for layer in self.layers:

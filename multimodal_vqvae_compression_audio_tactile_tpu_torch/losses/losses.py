@@ -16,6 +16,7 @@ import torch
 from ..core.precision import fp32_exact
 from ..dsp.mel import mel_mag
 from ..dsp.stft import stft_mag
+from ..ops.rvq import take_rows
 
 
 def _finite(x: torch.Tensor) -> torch.Tensor:
@@ -70,7 +71,9 @@ def _interp_frames(M: torch.Tensor, T_out: int) -> torch.Tensor:
     lo = torch.floor(pos).long()
     hi = torch.clamp(lo + 1, max=T_in - 1)
     w = pos - lo
-    return M[..., lo] * (1.0 - w) + M[..., hi] * w
+    # take_rows: the gradient toward M sums in the same order on every run
+    lo_m, hi_m = (take_rows(M.movedim(-1, 0), i).movedim(0, -1) for i in (lo, hi))
+    return lo_m * (1.0 - w) + hi_m * w
 
 
 def mel_cosine_loss(x: torch.Tensor, y: torch.Tensor, sr: int = 24000,

@@ -31,6 +31,7 @@ from ..core.config import CodecConfig
 from ..core.precision import fp32_exact
 from ..nn.layers import CrossPredictor, token_norm
 from ..ops.rvq import rvq_decode, rvq_quantize
+from . import dac
 from .dac import DAC, init_dac_
 
 
@@ -184,10 +185,16 @@ def backbone_latents(m: CodecModules, a: torch.Tensor, tc: torch.Tensor,
                      cfg: Optional[CodecConfig] = None,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(quantized audio latents, tactile teacher latents), both [B, C, T_lat].
-    ``cfg`` (default ``m.cfg``) chooses the backbone's layout options."""
-    dcfg = (cfg or m.cfg).dac
-    za = m.audio_dac.encoder(a, dcfg)
-    zt = m.tactile_dac.encoder(tc, dcfg)
+    ``cfg`` (default ``m.cfg``) chooses the backbone's layout options; with
+    its ``vmap_dual_encoder`` both encoders run in one pass, their stacks as
+    grouped kernel launches (``models/dac.py::dual_encode``, channels-first
+    whatever ``time_major_enc`` says, as the JAX package's vmapped path)."""
+    cfg = cfg or m.cfg
+    if cfg.vmap_dual_encoder:
+        za, zt = dac.dual_encode(m.audio_dac.encoder, m.tactile_dac.encoder, a, tc, cfg.dac)
+    else:
+        za = m.audio_dac.encoder(a, cfg.dac)
+        zt = m.tactile_dac.encoder(tc, cfg.dac)
     qa, _ = m.audio_dac.quantizer.quantize(za)
     return qa, zt
 

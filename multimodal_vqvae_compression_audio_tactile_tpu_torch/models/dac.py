@@ -28,6 +28,10 @@ backward, and the JAX package's training keeps its XLA path too).
 its losses and quantizer dropout, and ``quantizer_dead_code_reinit`` its
 dead-code reseeding.
 
+``dual_encode`` runs two encoders (audio and tactile) in one pass,
+``CodecConfig.vmap_dual_encoder``: one grouped K1 (or K3) launch sequence
+over both encoders' stacks, bit-equal to the sequential encoders.
+
 ``encode``, ``decode`` and ``encode_quantized`` are the JAX package's
 functional entry points over one backbone (its ``dac.encode``,
 ``dac.decode`` and ``dac.encode_quantized``): they compute in the input's
@@ -48,7 +52,7 @@ from ..core.precision import fp32_exact
 from ..ops import timeconv as tc
 from ..ops.resunit import DILATIONS, ResUnit, Snake, resunit_stack, resunit_stack_ref
 from ..ops.resunit_tm import resunit_stack_tm
-from ..ops.rvq import track_counts_and_reinit
+from ..ops.rvq import _segment_sum, take_rows, track_counts_and_reinit
 from ..parallel.mesh import batch_mean
 
 NARROW = 256     # stacks narrower than this take K3 under ``tail_kernel``
@@ -94,13 +98,14 @@ def _units(c: int) -> nn.ModuleList:
     return nn.ModuleList(ResUnit(c) for _ in DILATIONS)
 
 
-def _unit_stack(units: Sequence[ResUnit], y: torch.Tensor, cfg: DacConfig,
+def _unit_stack(units, y: torch.Tensor, cfg: DacConfig,
                 post_alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Channels-first stack: K3 between transposes for a narrow stack under
-    ``tail_kernel``, K1 otherwise."""
+    ``tail_kernel``, K1 otherwise. ``units`` is one stack or G of them
+    (``ops/resunit.py::resunit_stack``), y's rows b G + g going through
+    stack g."""
     if cfg.tail_kernel and y.shape[1] < NARROW:
-        yt = resunit_stack_tm(units, y.transpose(1, 2).contiguous(),
-                              DILATIONS[:len(units)], post_alpha)
+        yt = resunit_stack_tm(units, y.transpose(1, 2).contiguous(), DILATIONS, post_alpha)
         return yt.transpose(1, 2).contiguous()
     return resunit_stack(units, y, DILATIONS, post_alpha=post_alpha)
 
@@ -190,6 +195,41 @@ class Encoder(nn.Module):
             y = block.forward_tm(y, cfg)
         y = tc.conv_tm(self.out_conv, tc.snake_tm(self.out_snake.alpha, y))
         return y.transpose(1, 2)                                 # [B, C_lat, T / hop]
+
+
+def dual_encode(enc_a: Encoder, enc_t: Encoder, a: torch.Tensor, tc: torch.Tensor,
+                cfg: Optional[DacConfig] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both encoders in one pass -> (z_a, z_t), each [B, latent_dim, T /
+    hop]: ``CodecConfig.vmap_dual_encoder``, where the JAX package vmaps its
+    channels-first ``_encoder_apply`` over the two encoders' stacked
+    parameters. Each residual-unit stack is one grouped K1 launch sequence
+    (K3 for a narrow stack under ``tail_kernel``) over both encoders' units,
+    the activations side by side as [B, 2, C, T] (rows b 2 + g, encoder g),
+    the block snakes' alphas concatenated; each convolution outside the
+    stacks runs on its own encoder's half, as the sequential path runs it,
+    so the result is the sequential path's bit for bit and so are the codes
+    (on the H100, one ``groups=2`` cuDNN convolution over concatenated
+    weights summed in another order, which changed trained codes at batch
+    32, and ran 3.6x slower in fp32 there). Always channels-first, whatever
+    ``time_major_enc`` says, as the JAX package's vmapped path is. Serving
+    only: a call that autograd would record raises."""
+    cfg = cfg or enc_a.cfg
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (
+            a, tc, *enc_a.parameters(), *enc_t.parameters())):
+        raise RuntimeError("dual_encode: the grouped encoder is a serving path with no "
+                           "backward; run it under torch.no_grad()")
+    encs = (enc_a, enc_t)
+    ys = [conv1d(e.in_conv, x, padding=3) for e, x in zip(encs, (a, tc))]
+    for blocks in zip(enc_a.blocks, enc_t.blocks):
+        y = torch.stack(ys, dim=1)                          # [B, 2, C, T]
+        B, _, C, T = y.shape
+        post = torch.cat([b.snake.alpha for b in blocks])
+        y = _unit_stack([b.units for b in blocks], y.view(2 * B, C, T), cfg,
+                        post_alpha=post).view(B, 2, C, T)
+        ys = [conv1d(b.down, y[:, g].contiguous(), stride=b.r, padding=(b.r + 1) // 2)
+              for g, b in enumerate(blocks)]
+    za, zt = (conv1d(e.out_conv, e.out_snake(y), padding=1) for e, y in zip(encs, ys))
+    return za, zt
 
 
 class DecoderBlock(nn.Module):
@@ -341,7 +381,7 @@ class Quantizer(nn.Module):
             e = residual @ self.in_proj[i] + self.in_bias[i]            # [N, cd]
             cb = self.codebooks[i]
             idx = torch.argmax(_l2n(e.detach()) @ _l2n(cb.detach()).T, dim=1)
-            q_cd = cb[idx]
+            q_cd = take_rows(cb, idx)       # the books' gradient, in a fixed order
             if w_tok is None:
                 active, frac = 1.0, 1.0
             else:
@@ -399,7 +439,7 @@ def quantizer_dead_code_reinit(q: Quantizer, counts: torch.Tensor, z: torch.Tens
         e = residual @ q.in_proj[i] + q.in_bias[i]
         cb = q.codebooks[i]
         idx = torch.argmax(_l2n(e) @ _l2n(cb).T, dim=1)
-        batch_counts = residual.new_zeros(K).index_add_(0, idx, ones)
+        batch_counts = _segment_sum(ones, idx, K)
         b, c = track_counts_and_reinit(cb, counts[i], e, batch_counts, gen, decay=decay,
                                        dead_frac=dead_frac, uniform_share=N / K)
         books.append(b)

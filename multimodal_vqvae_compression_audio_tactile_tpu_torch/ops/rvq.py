@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.precision import fp32_exact
 
 def _nearest(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     scores = x @ emb.T - 0.5 * torch.sum(emb * emb, dim=1)[None, :]
@@ -75,9 +76,36 @@ def rvq_decode(books: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
 
 
 def _segment_sum(w: torch.Tensor, idx: torch.Tensor, K: int) -> torch.Tensor:
-    """sum of w's rows per index: w [N] or [N, D], idx [N] -> [K] or [K, D]."""
-    out = w.new_zeros((K,) + tuple(w.shape[1:]))
-    return out.index_add_(0, idx, w)
+    """sum of w's rows per index: w [N, ...], idx [N] -> [K, ...], as a
+    one-hot product [K, N] x [N, ...] in true fp32 (the JAX package's
+    ``jax.ops.segment_sum``). ``index_add_`` sums with atomics on the card,
+    in an order that changes from run to run; a product sums in the same
+    order on every run, and its 0/1 terms keep counts exact."""
+    onehot = (idx[None, :] == torch.arange(K, device=idx.device)[:, None]).to(w.dtype)
+    with fp32_exact():
+        return (onehot @ w.reshape(w.shape[0], -1)).reshape((K,) + tuple(w.shape[1:]))
+
+
+class _TakeRows(torch.autograd.Function):
+    """``table[idx]`` whose backward is ``_segment_sum`` (the backward of
+    plain indexing accumulates with atomics on the card)."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        return _segment_sum(grad, idx, ctx.rows), None
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table [K, ...], idx [N] int -> table[idx] [N, ...], with a gradient
+    toward ``table`` that sums in the same order on every run."""
+    return _TakeRows.apply(table, idx)
 
 
 def _weights(valid: Optional[torch.Tensor], N: int, device) -> torch.Tensor:
@@ -190,10 +218,9 @@ def usage_stats(codes: torch.Tensor, n_embed: int,
     B, T, n_books = codes.shape
     w = torch.ones(B, T, device=codes.device) if valid is None else \
         torch.broadcast_to(valid.float(), (B, T))
-    w_flat = w.reshape(-1).repeat(n_books)
-    offsets = torch.arange(n_books, device=codes.device) * n_embed
-    idx_flat = (codes.long() + offsets).permute(2, 0, 1).reshape(-1)
-    counts = _segment_sum(w_flat, idx_flat, n_books * n_embed).reshape(n_books, n_embed)
+    w_flat = w.reshape(-1)
+    idx = codes.long().reshape(B * T, n_books)
+    counts = torch.stack([_segment_sum(w_flat, idx[:, i], n_embed) for i in range(n_books)])
     total = torch.clamp_min(counts.sum(1, keepdim=True), 1e-9)
     probs = counts / total
     bits = -torch.sum(torch.where(probs > 0, probs * torch.log2(torch.clamp_min(probs, 1e-30)),

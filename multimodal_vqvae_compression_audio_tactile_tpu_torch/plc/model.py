@@ -34,6 +34,7 @@ from torch import nn
 
 from ..core.config import CodecConfig
 from ..core.precision import fp32_exact
+from ..models import allpred_ar
 from ..models.dac import DAC, Decoder, init_dac_
 from ..nn.layers import CrossPredictor
 
@@ -188,8 +189,7 @@ def forward_step(m: PLCModules, a: torch.Tensor, tc: torch.Tensor,
     with torch.set_grad_enabled(train and torch.is_grad_enabled()), \
             fp32_exact(a.dtype == torch.float32):
         with torch.no_grad():
-            qa = _audio_latents(m, a, cfg)
-            zt_full = m.tactile_dac.encoder(tc, cfg.dac)
+            qa, zt_full = allpred_ar.backbone_latents(m, a, tc, cfg)
         return _fill_and_decode(m.head, decoder or m.tactile_dac.decoder, cfg, qa, zt_full,
                                 tc, mask_tokens, mask_embed, dropout, train)
 

@@ -47,7 +47,7 @@ from ..convert import (decoder_leaves, decoder_tree, load_tolerant, plc_head_lea
                        plc_head_tree)
 from ..core import rng
 from ..core.config import CodecConfig, PLCConfig, TrainConfig, asdict_jsonable
-from ..core.precision import fp32_exact
+from ..core.precision import deterministic_steps, fp32_exact
 from ..data import wire
 from ..eval.serving import resolve_device
 from ..losses.losses import codec_loss
@@ -162,6 +162,7 @@ def make_plc_train_step(cfg: CodecConfig, tcfg: TrainConfig, mask_embed: bool = 
         return metrics if mesh is None else pmesh.all_reduce_mean(mesh, metrics)
 
     def stepper(fn):
+        @deterministic_steps()
         def step(state: PLCTrainState, backbones: dict, a, tc, mask,
                  base_seed: Optional[int]) -> torch.Tensor:
             gen = (None if base_seed is None
@@ -179,6 +180,7 @@ def make_plc_train_step(cfg: CodecConfig, tcfg: TrainConfig, mask_embed: bool = 
         return step
 
     @torch.no_grad()
+    @deterministic_steps()
     def eval_step(head: PLCHead, backbones: dict, a, tc, mask) -> torch.Tensor:
         with pmesh.batch_scope(mesh):
             return global_metrics(loss_fn(head, backbones, a, tc, mask, None))
@@ -216,6 +218,7 @@ def make_decoder_ft_step(cfg: CodecConfig, tcfg: TrainConfig, mask_embed: bool =
         tmse = masked_time_rel_mse(y_hat, tgt, m, cfg.dac.hop)
         return torch.stack([total + w_masked_ft * tmse, torch.zeros_like(tmse), tmse])
 
+    @deterministic_steps()
     def ft_step(dec, opt: AdamW, head, backbones, a, tc, mask, gen) -> torch.Tensor:
         dec.zero_grad(set_to_none=True)
         metrics = loss_fn(dec, head, backbones, a, tc, mask, gen)
@@ -224,6 +227,7 @@ def make_decoder_ft_step(cfg: CodecConfig, tcfg: TrainConfig, mask_embed: bool =
         return metrics.detach()
 
     @torch.no_grad()
+    @deterministic_steps()
     def ft_eval(dec, head, backbones, a, tc, mask) -> torch.Tensor:
         return loss_fn(dec, head, backbones, a, tc, mask, None)
 

@@ -61,7 +61,7 @@ import torch
 from ..convert import head_tree, load_head_tolerant
 from ..core import rng
 from ..core.config import CodecConfig, TrainConfig
-from ..core.precision import fp32_exact
+from ..core.precision import deterministic_steps, fp32_exact
 from ..data import wire
 from ..eval.serving import resolve_device
 from ..losses.losses import codec_loss
@@ -222,6 +222,7 @@ def make_step_fns(cfg: CodecConfig, tcfg: TrainConfig, mesh: Optional[pmesh.Mesh
                      vq_bits_min=stats["bits"].min(), vq_used=stats["used_frac"].mean())
         return torch.stack([parts[k].float() for k in METRIC_KEYS])
 
+    @deterministic_steps()
     def train_step(state: TrainState, a, tc, base_seed: Optional[int],
                    do_ema: bool = False) -> torch.Tensor:
         head, dev = state.head, tc.device
@@ -251,6 +252,7 @@ def make_step_fns(cfg: CodecConfig, tcfg: TrainConfig, mesh: Optional[pmesh.Mesh
         return pack_metrics(parts, out["codes"], out["valid"])
 
     @torch.no_grad()
+    @deterministic_steps()
     def eval_step(m: CodecModules, a, tc) -> torch.Tensor:
         _, parts, out = loss_fn(m, a, tc, None)
         return pack_metrics(parts, out["codes"], out["valid"])

@@ -51,7 +51,7 @@ import torch
 from ..convert import dac_tree, disc_tree, load_dac_checkpoint, load_disc
 from ..core import rng
 from ..core.config import DacConfig, GanConfig, TrainConfig
-from ..core.precision import fp32_exact
+from ..core.precision import deterministic_steps, fp32_exact
 from ..data import wire
 from ..eval.serving import resolve_device
 from ..losses import gan as gan_mod
@@ -172,6 +172,7 @@ def _global(mesh: Optional[pmesh.Mesh], metrics: torch.Tensor) -> torch.Tensor:
 def _eval_fn(cfg: DacConfig, w_commit: float, w_codebook: float,
              mesh: Optional[pmesh.Mesh] = None) -> Callable:
     @torch.no_grad()
+    @deterministic_steps()
     def eval_step(m: DAC, x: torch.Tensor) -> torch.Tensor:
         """The reconstruction total on x, through the serving encoder and
         decoder (K1 on the card)."""
@@ -195,6 +196,7 @@ def make_pretrain_step(cfg: DacConfig, tcfg: TrainConfig, w_commit: float = 0.25
     def gathered(t: torch.Tensor) -> torch.Tensor:
         return t if mesh is None else pmesh.all_gather_batch(mesh, t)
 
+    @deterministic_steps()
     def pretrain_step(state: PretrainState, x: torch.Tensor,
                       base_seed: Optional[int] = None) -> torch.Tensor:
         x = wire.decode_wave(x)
@@ -232,6 +234,7 @@ def make_gan_pretrain_step(cfg: DacConfig, tcfg: TrainConfig, gcfg: GanConfig,
     is this rank's rows, and the numbers the global batch's."""
     n_books = cfg.n_codebooks
 
+    @deterministic_steps()
     def gan_step(state: PretrainState, x: torch.Tensor,
                  base_seed: Optional[int] = None) -> torch.Tensor:
         x = wire.decode_wave(x)
@@ -250,6 +253,7 @@ def make_gan_pretrain_step(cfg: DacConfig, tcfg: TrainConfig, gcfg: GanConfig,
         return _global(mesh, torch.stack([total.detach(), d_val.detach(), adv.detach(),
                                           fm.detach()]))
 
+    @deterministic_steps()
     def warmup_step(state: PretrainState, x: torch.Tensor,
                     base_seed: Optional[int] = None) -> torch.Tensor:
         x = wire.decode_wave(x)
